@@ -126,8 +126,7 @@ class SolverConfig:
     package's ``SolverConfig``."""
 
     # 'auto' picks BiCGStab below 500 interior points on the longest axis
-    # and flexible GMRES(restart)+MG at/above it.  The port has BiCGStab
-    # only so far: 'gmres' and 'cg' raise NotImplementedError (ROADMAP A5).
+    # and flexible GMRES(restart)+MG at/above it.
     method: str = "auto"  # 'auto' | 'bicgstab' | 'gmres' | 'cg'
     rtol: float = 1e-6  # relative tolerance on the unpreconditioned residual
     atol: float = 0.0
@@ -152,7 +151,9 @@ class SolverConfig:
     # FGMRES restart length.
     gmres_restart: int = 32
     # Matvec implementation.  'auto' and 'pallas' select the fused
-    # hand-written CUDA kernel (ops.cuda_kernels); 'xla' the plain stencil
-    # on precomputed coefficient planes (ops.elop).  'hybrid' and 'gspmd'
-    # are not ported yet (ROADMAP B2, A14) and raise NotImplementedError.
+    # hand-written CUDA kernel (ops.cuda_kernels); 'hybrid' the plain-stencil
+    # CUDA kernel with the boundary ring overwritten in torch; 'xla' the
+    # plain stencil on precomputed coefficient planes (ops.elop).  'gspmd'
+    # (sharded solves) is not ported yet (ROADMAP A14) and raises
+    # NotImplementedError.
     matvec: str = "auto"  # 'auto' | 'xla' | 'pallas' | 'hybrid' | 'gspmd'

@@ -1,48 +1,67 @@
 """Hand-written CUDA kernels of the port, their builds, wrappers and plain
 versions.
 
-One kernel so far: the fused reduced Euler-Lagrange matvec
-(``csrc/el_matvec.cu``), the Hopper counterpart of the TPU kernel
-``opticalflow_tpu/ops/pallas_kernels.py::_el_matvec_interior_kernel``.
+Two kernels, both on the stencil of ``csrc/el_stencil.cuh``:
 
-* :func:`el_matvec_reduced_fused` is the wrapper.  On CPU tensors it runs
-  the plain version; on CUDA tensors it checks device, dtype, shape and
-  contiguity, launches the kernel on the current stream, and raises on any
-  failure — there is no fallback.  It adds one to ``LAUNCHES`` per launch.
-* :func:`el_matvec_reduced_fused_ref` is the plain PyTorch version of the
-  same function (coefficients rebuilt, then ``elop.interior_apply`` of
-  ``elop.extend_interior``).  It adds one to ``PLAIN_CALLS`` per call.
-* :func:`load_library` builds the kernel with ``nvcc`` on first use into
-  ``_build/`` beside the package (a plain C entry point loaded with
-  ctypes), keyed by a hash of the source.
+* the fused reduced Euler-Lagrange matvec (``csrc/el_matvec.cu``), the
+  Hopper counterpart of the TPU kernel
+  ``opticalflow_tpu/ops/pallas_kernels.py::_el_matvec_interior_kernel``:
+  wrapper :func:`el_matvec_reduced_fused`, plain version
+  :func:`el_matvec_reduced_fused_ref`, counters ``LAUNCHES`` and
+  ``PLAIN_CALLS``;
+* the plain stencil core (``csrc/el_matvec_plain.cu``), the counterpart of
+  ``pallas_kernels.py::_el_matvec_plain_kernel``: wrapper
+  :func:`el_matvec_plain_core`, plain version :func:`el_matvec_plain_core_ref`,
+  counters ``CORE_LAUNCHES`` and ``CORE_PLAIN_CALLS``.  With the boundary
+  ring overwritten by ``elop.ring_apply`` it is the hybrid matvec
+  (:func:`el_matvec_hybrid`, the counterpart of ``make_hybrid_ops``), which
+  equals the fused matvec.
+
+On CPU tensors a wrapper runs its plain version; on CUDA tensors it checks
+device, dtype, shape and contiguity, launches its kernel on the current
+stream, and raises on any failure — there is no fallback.  It adds one to
+its launch counter per launch, and a plain version to its own counter per
+call.  :func:`load_library` builds each source of ``ENTRY_POINTS`` with
+``nvcc`` on first use, one process per source, all started together, into
+``_build/`` beside the package (plain C entry points loaded with ctypes),
+keyed by a hash of every source and header under ``csrc/`` and the flags.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import time
+from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
 from opticalflow_tpu_torch.core import stencils
 from opticalflow_tpu_torch.ops import elop
 
 LAUNCHES = 0  # kernel launches by el_matvec_reduced_fused
 PLAIN_CALLS = 0  # calls of the plain version el_matvec_reduced_fused_ref
-BUILD_SECONDS = None  # wall time of this process's nvcc build, if it built
-BUILD_LOG = ""  # nvcc's output of that build (-Xptxas -v: registers, smem)
+CORE_LAUNCHES = 0  # kernel launches by el_matvec_plain_core
+CORE_PLAIN_CALLS = 0  # calls of the plain version el_matvec_plain_core_ref
+BUILD_SECONDS = None  # wall time of this process's nvcc builds, if it built
+BUILD_LOG = ""  # nvcc's output of those builds (-Xptxas -v: registers, smem)
 
 _HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_HERE, "csrc", "el_matvec.cu")
+SOURCE_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# C entry point of each source; all take (I, scalars, u, out, B, K, m, n,
+# compat, stream)
+ENTRY_POINTS = {"el_matvec.cu": "el_matvec_reduced_fused",
+                "el_matvec_plain.cu": "el_matvec_plain_core"}
 
-_LIB = None
+_FUNCTIONS: Dict[str, ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -56,31 +75,42 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (once per source version) and load the kernel library."""
-    global _LIB, BUILD_SECONDS, BUILD_LOG
-    if _LIB is not None:
-        return _LIB
-    with open(SOURCE, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = os.path.join(BUILD_DIR, f"libel_matvec_{digest}.so")
-    if not os.path.exists(lib_path):
+def load_library() -> Dict[str, ctypes._CFuncPtr]:
+    """Build (once per version of the sources) and load every kernel;
+    returns the C entry points by name."""
+    global BUILD_SECONDS, BUILD_LOG
+    if _FUNCTIONS:
+        return _FUNCTIONS
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(SOURCE_DIR, "*.cu*"))):  # headers too
+        with open(path, "rb") as fh:
+            h.update(os.path.basename(path).encode() + b"\0" + fh.read())
+    digest = h.hexdigest()[:16]
+    libs = {src: os.path.join(BUILD_DIR, f"lib{src[:-3]}_{digest}.so") for src in ENTRY_POINTS}
+    missing = [src for src, lib in libs.items() if not os.path.exists(lib)]
+    if missing:
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
+        procs = {src: subprocess.Popen(  # one nvcc per source, all at once
+            [_nvcc(), *NVCC_FLAGS, "-o", f"{libs[src]}.{os.getpid()}.tmp",
+             os.path.join(SOURCE_DIR, src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for src in missing}
+        logs = {src: proc.communicate()[0] for src, proc in procs.items()}
         BUILD_SECONDS = time.perf_counter() - t0
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(lib_path)
-    fn = lib.el_matvec_reduced_fused
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _LIB = lib
-    return lib
+        BUILD_LOG = "".join(f"== {src}\n{log}" for src, log in logs.items())
+        failed = [f"{src} ({proc.returncode})" for src, proc in procs.items() if proc.returncode]
+        if failed:
+            raise RuntimeError(f"nvcc failed: {', '.join(failed)}:\n{BUILD_LOG}")
+        for src in missing:
+            os.replace(f"{libs[src]}.{os.getpid()}.tmp", libs[src])
+    functions = {}
+    for src, entry in ENTRY_POINTS.items():
+        fn = getattr(ctypes.CDLL(libs[src]), entry)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        functions[entry] = fn
+    _FUNCTIONS.update(functions)
+    return _FUNCTIONS
 
 
 def _check_shapes(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor):
@@ -98,30 +128,15 @@ def _check_shapes(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor):
     return B, K, m, n
 
 
-def el_matvec_reduced_fused_ref(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor,
-                                compat: bool) -> torch.Tensor:
-    """Plain PyTorch version of the fused kernel: ``I`` (B, m+2, n+2),
-    ``scalars`` (B, 2) = per-pair (alpha_s, alpha_r), ``u`` (B, 3, m, n) or
-    (B, K, 3, m, n); returns y = A_reduced u of the same shape."""
-    global PLAIN_CALLS
-    _check_shapes(I, scalars, u)
-    PLAIN_CALLS += 1
-    dy_mode = stencils.DY_COMPAT if compat else stencils.DY_FIXED
-    if u.dim() == 5:
-        I, scalars = I[:, None], scalars[:, None]
-    coeffs = elop.compute_coefficients(I, scalars[..., 0], scalars[..., 1], dy_mode)
-    return elop.interior_apply(coeffs, elop.extend_interior(u))
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
 
 
-def el_matvec_reduced_fused(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor,
-                            compat: bool) -> torch.Tensor:
-    """y = A_reduced u with the coefficients rebuilt from ``I`` on the fly;
-    arguments as :func:`el_matvec_reduced_fused_ref`.  CUDA tensors go
-    through the hand-written kernel, CPU tensors through the plain
-    version."""
-    global LAUNCHES
-    if u.device.type == "cpu" and I.device.type == "cpu" and scalars.device.type == "cpu":
-        return el_matvec_reduced_fused_ref(I, scalars, u, compat)
+def _launch(entry: str, I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor,
+            compat: bool) -> torch.Tensor:
+    """Check the operands of a kernel call and launch ``entry`` on the
+    current stream; raises on anything the kernel does not take and on a
+    failed launch."""
     B, K, m, n = _check_shapes(I, scalars, u)
     for name, t in (("I", I), ("scalars", scalars), ("u", u)):
         if t.device != u.device or t.device.type != "cuda":
@@ -132,15 +147,81 @@ def el_matvec_reduced_fused(I: torch.Tensor, scalars: torch.Tensor, u: torch.Ten
             raise ValueError(f"{name} must be contiguous")
     if B * K > 65535:
         raise ValueError(f"B*K = {B * K} exceeds the grid's z limit 65535")
-    lib = load_library()
+    fn = load_library()[entry]
     out = torch.empty_like(u)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        rc = lib.el_matvec_reduced_fused(
-            I.data_ptr(), scalars.data_ptr(), u.data_ptr(), out.data_ptr(),
-            B, K, m, n, int(bool(compat)), stream,
-        )
+        rc = fn(I.data_ptr(), scalars.data_ptr(), u.data_ptr(), out.data_ptr(),
+                B, K, m, n, int(bool(compat)), stream)
     if rc != 0:
-        raise RuntimeError(f"el_matvec kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {rc}")
+    return out
+
+
+def _coefficients(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor, compat: bool):
+    """Coefficient planes rebuilt from ``I`` as the kernels do, with a probe
+    axis when ``u`` is a (B, K, 3, m, n) stack."""
+    dy_mode = stencils.DY_COMPAT if compat else stencils.DY_FIXED
+    if u.dim() == 5:
+        I, scalars = I[:, None], scalars[:, None]
+    return elop.compute_coefficients(I, scalars[..., 0], scalars[..., 1], dy_mode)
+
+
+def el_matvec_reduced_fused_ref(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor,
+                                compat: bool) -> torch.Tensor:
+    """Plain PyTorch version of the fused kernel: ``I`` (B, m+2, n+2),
+    ``scalars`` (B, 2) = per-pair (alpha_s, alpha_r), ``u`` (B, 3, m, n) or
+    (B, K, 3, m, n); returns y = A_reduced u of the same shape."""
+    global PLAIN_CALLS
+    _check_shapes(I, scalars, u)
+    PLAIN_CALLS += 1
+    return elop.interior_apply(_coefficients(I, scalars, u, compat), elop.extend_interior(u))
+
+
+def el_matvec_reduced_fused(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor,
+                            compat: bool) -> torch.Tensor:
+    """y = A_reduced u with the coefficients rebuilt from ``I`` on the fly;
+    arguments as :func:`el_matvec_reduced_fused_ref`.  CUDA tensors go
+    through the hand-written kernel, CPU tensors through the plain
+    version."""
+    global LAUNCHES
+    if _on_cpu(I, scalars, u):
+        return el_matvec_reduced_fused_ref(I, scalars, u, compat)
+    out = _launch("el_matvec_reduced_fused", I, scalars, u, compat)
     LAUNCHES += 1
     return out
+
+
+def el_matvec_plain_core_ref(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor,
+                             compat: bool) -> torch.Tensor:
+    """Plain PyTorch version of the plain-stencil kernel: the EL stencil
+    with coefficients rebuilt from ``I``, applied to ``u`` extended by
+    zeros (every output pixel, the boundary ring included); arguments as
+    :func:`el_matvec_reduced_fused_ref`."""
+    global CORE_PLAIN_CALLS
+    _check_shapes(I, scalars, u)
+    CORE_PLAIN_CALLS += 1
+    return elop.interior_apply(_coefficients(I, scalars, u, compat), F.pad(u, (1, 1, 1, 1)))
+
+
+def el_matvec_plain_core(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor,
+                         compat: bool) -> torch.Tensor:
+    """The plain stencil of :func:`el_matvec_plain_core_ref`; CUDA tensors
+    go through the hand-written kernel, CPU tensors through the plain
+    version."""
+    global CORE_LAUNCHES
+    if _on_cpu(I, scalars, u):
+        return el_matvec_plain_core_ref(I, scalars, u, compat)
+    out = _launch("el_matvec_plain_core", I, scalars, u, compat)
+    CORE_LAUNCHES += 1
+    return out
+
+
+def el_matvec_hybrid(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor, compat: bool,
+                     ring: elop.RingCoeffs) -> torch.Tensor:
+    """y = A_reduced u as the plain-stencil core plus the boundary ring
+    overwritten by ``elop.ring_apply`` (the counterpart of
+    ``pallas_kernels.make_hybrid_ops``); ``ring`` holds the strips of the
+    coefficient planes of ``I`` (``elop.ring_coeffs``), with a probe axis
+    when ``u`` is a (B, K, 3, m, n) stack."""
+    return elop.ring_overwrite(el_matvec_plain_core(I, scalars, u, compat), ring, u)

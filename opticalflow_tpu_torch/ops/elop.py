@@ -200,6 +200,104 @@ def el_matvec_reduced(coeffs: ELCoefficients, u_int: torch.Tensor) -> torch.Tens
     return interior_apply(coeffs, extend_interior(u_int))
 
 
+# ---------------------------------------------------------------------------
+# Boundary-ring application of the reduced operator on thin strips.
+#
+# The hybrid matvec (ops.cuda_kernels.el_matvec_hybrid) runs the plain
+# stencil kernel, whose reads outside the interior are zero, and overwrites
+# the one-pixel boundary ring of its output, the only pixels where the
+# mirror semantics matter, with the values computed here from O(m+n) strips.
+# Plain torch ops, as the ring is an XLA pass in the JAX package.
+# ---------------------------------------------------------------------------
+
+
+def _slice_coeffs(c: ELCoefficients, rs, cs) -> ELCoefficients:
+    """Slice every coefficient plane ``(..., m, n)`` (scalars pass
+    through)."""
+    scalars = ("speed_alpha", "remodelling_alpha")
+    return c._replace(**{name: getattr(c, name)[..., rs, cs]
+                         for name in c._fields if name not in scalars})
+
+
+class RingCoeffs(NamedTuple):
+    """Coefficient strips of the four boundary-ring rows/cols, sliced once
+    per batch of pairs (top/bottom planes are (..., 1, n); left/right
+    (..., m, 1))."""
+
+    top: ELCoefficients
+    bottom: ELCoefficients
+    left: ELCoefficients
+    right: ELCoefficients
+
+
+def ring_coeffs(c: ELCoefficients) -> RingCoeffs:
+    sl = slice(None)
+    return RingCoeffs(
+        top=_slice_coeffs(c, slice(0, 1), sl),
+        bottom=_slice_coeffs(c, slice(-1, None), sl),
+        left=_slice_coeffs(c, sl, slice(0, 1)),
+        right=_slice_coeffs(c, sl, slice(-1, None)),
+    )
+
+
+def with_probe_axis(c: ELCoefficients) -> ELCoefficients:
+    """Planes (B, ...) and scalars (B,) viewed as (B, 1, ...) / (B, 1), to
+    broadcast over a (B, K, 3, m, n) stack of K fields per pair."""
+    return ELCoefficients(*[field[:, None] for field in c])
+
+
+def ring_apply(rc: RingCoeffs, u_int: torch.Tensor):
+    """Reduced-matvec values on the boundary ring of the interior grid.
+
+    ``u_int``: (B, 3, m, n), or (B, K, 3, m, n) when ``rc`` was built from
+    planes with a probe axis (:func:`with_probe_axis`).  Returns ``(top,
+    bottom, left, right)`` of shapes (..., 3, n), (..., 3, n), (..., 3, m),
+    (..., 3, m); the four corner pixels appear in both their strips with
+    identical values.  Each strip is :func:`interior_apply` on a 3-row/3-col
+    extended slab built from two interior strips, O(m+n) work in all.
+    """
+    x = u_int
+
+    def ext(line, corner):
+        # interior line (..., 3, L) -> extended (..., 3, L+2) with mirrors
+        return torch.cat([corner * line[..., 1:2], line, corner * line[..., -2:-1]], dim=-1)
+
+    # top slab: ext rows 0..2 (ext row i+1 = interior row i; ext row 0
+    # mirrors interior row 1, global corners doubled)
+    slab_top = torch.stack([ext(x[..., 1, :], 2.0), ext(x[..., 0, :], 1.0),
+                            ext(x[..., 1, :], 1.0)], dim=-2)
+    top = interior_apply(rc.top, slab_top)[..., 0, :]
+
+    # bottom slab: ext rows m-1..m+1 (ext row m+1 mirrors interior m-2)
+    slab_bot = torch.stack([ext(x[..., -2, :], 1.0), ext(x[..., -1, :], 1.0),
+                            ext(x[..., -2, :], 2.0)], dim=-2)
+    bottom = interior_apply(rc.bottom, slab_bot)[..., 0, :]
+
+    # left slab: ext cols 0..2 over all ext rows
+    slab_left = torch.stack([ext(x[..., :, 1], 2.0), ext(x[..., :, 0], 1.0),
+                             ext(x[..., :, 1], 1.0)], dim=-1)
+    left = interior_apply(rc.left, slab_left)[..., 0]
+
+    # right slab: ext cols n-1..n+1
+    slab_right = torch.stack([ext(x[..., :, -2], 1.0), ext(x[..., :, -1], 1.0),
+                              ext(x[..., :, -2], 2.0)], dim=-1)
+    right = interior_apply(rc.right, slab_right)[..., 0]
+
+    return top, bottom, left, right
+
+
+def ring_overwrite(y: torch.Tensor, rc: RingCoeffs, u_int: torch.Tensor) -> torch.Tensor:
+    """Overwrite the boundary ring of ``y`` (same shape as ``u_int``) in
+    place with :func:`ring_apply`, in the JAX package's order (top, bottom,
+    left, right); returns ``y``."""
+    top, bottom, left, right = ring_apply(rc, u_int)
+    y[..., 0, :] = top
+    y[..., -1, :] = bottom
+    y[..., :, 0] = left
+    y[..., :, -1] = right
+    return y
+
+
 def diag_blocks(coeffs: ELCoefficients) -> torch.Tensor:
     """Per-pixel 3x3 diagonal blocks of the interior operator,
     ``(..., Ni-2, Nj-2, 3, 3)`` (the JAX package's layout)."""

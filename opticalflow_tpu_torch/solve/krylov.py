@@ -1,22 +1,23 @@
-"""Batched matrix-free BiCGStab.
+"""Batched matrix-free Krylov solvers: BiCGStab, CG and flexible GMRES.
 
-Counterpart of ``opticalflow_tpu.solve.krylov.bicgstab`` for a batch of
+Counterparts of ``opticalflow_tpu.solve.krylov`` for a batch of
 independent systems: ``b`` is (B, ...), the matvec and preconditioner act
-on the whole batch, and every scalar of the recurrence (rho, alpha, omega,
-the iteration count, the best and checkpoint norms, the stagnation and
-breakdown flags) is a per-pair (B,) tensor.  A pair whose own exit test has
-fired is frozen: the batch's step is still computed for it, but its state
-is kept, exactly as under ``jax.vmap`` of the JAX ``lax.while_loop``.  The
-loop runs on the host and reads one flag from the device per iteration;
-those reads are counted as ``krylov/host_syncs`` (utils.observability).
-
-``fgmres`` and ``cg`` are not ported yet (ROADMAP A5).
+on the whole batch, and every scalar of a recurrence (BiCGStab's rho,
+alpha, omega, the iteration count, the best and checkpoint norms, the
+stagnation and breakdown flags) is a per-pair (B,) value.  A pair whose own
+exit test has fired is frozen: the batch's step is still computed for it,
+but its state is kept, exactly as under ``jax.vmap`` of the JAX
+``lax.while_loop``.  The loops run on the host and read their exit flags
+from the device once per iteration; those reads are counted as
+``krylov/host_syncs`` (utils.observability).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from opticalflow_tpu_torch.utils import observability
@@ -47,6 +48,30 @@ def batch_dot(a: torch.Tensor, b: torch.Tensor, acc) -> torch.Tensor:
 def _bc(s: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """A (B,) tensor viewed to broadcast against ``like`` (B, ...)."""
     return s.reshape((-1,) + (1,) * (like.dim() - 1))
+
+
+@contextlib.contextmanager
+def full_f32_precision():
+    """No TF32 in matrix products or convolutions for the duration (the
+    counterpart of the JAX package's HIGHEST matmul precision)."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """Copy a small device tensor to the host, counted as a host sync."""
+    observability.add_count("krylov/host_syncs")
+    return t.detach().cpu().numpy()
+
+
+def _mask(flags: np.ndarray, device) -> torch.Tensor:
+    """A host (B,) bool mask on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(flags)).to(device)
 
 
 def bicgstab(
@@ -156,3 +181,250 @@ def bicgstab(
     true_norm = torch.sqrt(dot(true_res, true_res))
     return KrylovResult(x=best_x, iterations=k, residual_norm=true_norm,
                         converged=true_norm <= tol)
+
+
+def cg(
+    matvec: MatVec,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    precond: Optional[Precond] = None,
+    rtol: float = 1e-6,
+    atol: float = 0.0,
+    max_iterations: int = 1000,
+    high_precision_reductions: bool = True,
+    tol_floor_eps_multiple: float = 300.0,
+) -> KrylovResult:
+    """Preconditioned conjugate gradient on a batch of symmetric positive
+    definite systems.  Each pair stops at the tolerance of :func:`bicgstab`
+    or at ``max_iterations``; returns each pair's last iterate and its
+    recomputed true residual."""
+    acc = acc_dtype(b.dtype, high_precision_reductions)
+
+    def dot(u, v):
+        return batch_dot(u, v, acc)
+
+    if precond is None:
+        precond = lambda r: r  # noqa: E731
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+
+    r = b - matvec(x0)
+    z = precond(r)
+    b_norm = torch.sqrt(dot(b, b))
+    eff_rtol = max(rtol, tol_floor_eps_multiple * torch.finfo(b.dtype).eps)
+    tol = torch.clamp(eff_rtol * b_norm, min=atol)
+    tiny = torch.finfo(b.dtype).tiny
+
+    x, p = x0, z
+    rz = dot(r, z)
+    k = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
+    res_norm = torch.sqrt(dot(r, r))
+    while True:
+        active = (k < max_iterations) & (res_norm > tol)
+        observability.add_count("krylov/host_syncs")
+        if not bool(active.any()):
+            break
+        ap = matvec(p)
+        pap = dot(p, ap)
+        alpha = rz / torch.where(pap.abs() > 0, pap, tiny)
+        x_new = x + (_bc(alpha, x) * p.to(acc)).to(b.dtype)
+        r_new = r - (_bc(alpha, r) * ap.to(acc)).to(b.dtype)
+        z_new = precond(r_new)
+        rz_new = dot(r_new, z_new)
+        beta = rz_new / torch.where(rz.abs() > 0, rz, tiny)
+        p_new = z_new + (_bc(beta, p) * p.to(acc)).to(b.dtype)
+
+        av = _bc(active, b)
+        x = torch.where(av, x_new, x)
+        r = torch.where(av, r_new, r)
+        p = torch.where(av, p_new, p)
+        rz = torch.where(active, rz_new, rz)
+        res_norm = torch.where(active, torch.sqrt(dot(r_new, r_new)), res_norm)
+        k = torch.where(active, k + 1, k)
+
+    true_res = b - matvec(x)
+    true_norm = torch.sqrt(dot(true_res, true_res))
+    return KrylovResult(x=x, iterations=k, residual_norm=true_norm, converged=true_norm <= tol)
+
+
+@full_f32_precision()
+def fgmres(
+    matvec: MatVec,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    precond: Optional[Precond] = None,
+    rtol: float = 1e-6,
+    atol: float = 0.0,
+    max_iterations: int = 1000,
+    restart: int = 32,
+    high_precision_reductions: bool = True,
+    tol_floor_eps_multiple: float = 300.0,
+    truncation_guard: bool = True,
+) -> KrylovResult:
+    """Flexible GMRES(restart) on a batch of systems, right-preconditioned:
+    the robust large-grid solver (why, and the guards below, are explained
+    at ``opticalflow_tpu.solve.krylov.fgmres``).
+
+    Kept from the JAX solver: classical Gram-Schmidt with one full
+    reorthogonalisation (CGS2), Givens rotations with the running residual
+    estimate, the Arnoldi breakdown guard (``hj1 <= 3e-4 ||A z_j||``) and
+    the R-conditioning guard (``|r_jj| <= 1e-5 max|r_ii|``), the cap
+    ``k + j < max_iterations`` inside a cycle, the true residual at every
+    restart, the truncation guard (half and quarter cycles evaluated when
+    the full cycle's true residual disagrees with the estimate), the stop
+    on <1% progress per cycle, and keeping each pair's best iterate.
+
+    Batching: the Arnoldi basis V (B, restart+1, N) and the flexible basis
+    Z (B, restart, N) live on the device; every pair still in its cycle
+    fills column j = the cycle's step, so the writes are one slice, masked
+    to those pairs.  The Hessenberg column of each step (B, j+2) and the
+    two norms come to the host in one read, where the Givens rotations, the
+    estimate and the guards run in ``b.dtype`` as in the JAX solver, and the
+    small triangular solves too.  The projections are batched products in
+    the accumulation dtype (float64 for float32 fields by default; V is
+    kept in it), independent of the caller's TF32 setting.
+    """
+    acc = acc_dtype(b.dtype, high_precision_reductions)
+
+    def dot(u, v):
+        return batch_dot(u, v, acc)
+
+    if precond is None:
+        precond = lambda r: r  # noqa: E731
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    dt, dev = b.dtype, b.device
+    npdt = torch.empty((), dtype=dt).numpy().dtype
+    B, N, m = b.shape[0], b[0].numel(), int(restart)
+    tiny = torch.finfo(dt).tiny
+    np_tiny = npdt.type(tiny)
+
+    b_norm = torch.sqrt(dot(b, b))
+    eff_rtol = max(rtol, tol_floor_eps_multiple * torch.finfo(dt).eps)
+    tol_dev = torch.clamp(eff_rtol * b_norm, min=atol)
+    r0 = b - matvec(x0)
+    tol, res_norm = _host(torch.stack([tol_dev, torch.sqrt(dot(r0, r0))]))
+    x = x0
+    k = np.zeros(B, np.int64)
+    stalled = np.zeros(B, bool)
+
+    while True:
+        outer = (k < max_iterations) & (res_norm > tol) & ~stalled
+        if not outer.any():
+            break
+        r = b - matvec(x)
+        beta_dev = torch.sqrt(dot(r, r)).to(dt)
+        V = torch.zeros((B, m + 1, N), dtype=acc, device=dev)
+        V[:, 0] = (r.reshape(B, N) / torch.clamp(beta_dev, min=tiny)[:, None]).to(acc)
+        Z = torch.zeros((B, m, N), dtype=dt, device=dev)
+        beta = _host(beta_dev)
+
+        R = np.zeros((B, m + 1, m), npdt)
+        cs = np.zeros((B, m), npdt)
+        sn = np.zeros((B, m), npdt)
+        g = np.zeros((B, m + 1), npdt)
+        g[:, 0] = beta
+        j = np.zeros(B, np.int64)
+        est = beta.copy()
+        brk = np.zeros(B, bool)
+        rmax = np.zeros(B, npdt)
+        act = outer & (est > tol) & (k < max_iterations)
+        t = 0
+        while act.any():
+            # every pair still in the cycle is at column t
+            z = precond(V[:, t].to(dt).reshape(b.shape))
+            w = matvec(z).reshape(B, N)
+            w_entry = torch.sqrt(dot(w, w)).to(dt)
+            Vt = V[:, : t + 1]
+            h1 = torch.bmm(Vt, w.to(acc)[:, :, None])
+            w = w - torch.bmm(Vt.transpose(1, 2), h1)[..., 0].to(dt)
+            h2 = torch.bmm(Vt, w.to(acc)[:, :, None])
+            w = w - torch.bmm(Vt.transpose(1, 2), h2)[..., 0].to(dt)
+            h = (h1 + h2)[..., 0].to(dt)
+            hj1 = torch.sqrt(dot(w, w)).to(dt)
+            v_next = (w / torch.clamp(hj1, min=tiny)[:, None]).to(acc)
+            if act.all():
+                V[:, t + 1] = v_next
+                Z[:, t] = z.reshape(B, N)
+            else:
+                idx = torch.from_numpy(np.flatnonzero(act)).to(dev)
+                V[idx, t + 1] = v_next[idx]
+                Z[idx, t] = z.reshape(B, N)[idx]
+            col_host = _host(torch.cat([h, hj1[:, None], w_entry[:, None]], dim=1))
+
+            with np.errstate(all="ignore"):  # frozen pairs may hold anything
+                col = np.zeros((B, m + 1), npdt)
+                col[:, : t + 2] = col_host[:, : t + 2]  # h[:t+1], then hj1 at t+1
+                for i in range(t):  # the earlier rotations
+                    ci, si = cs[:, i], sn[:, i]
+                    hi, hi1 = col[:, i].copy(), col[:, i + 1].copy()
+                    col[:, i] = ci * hi + si * hi1
+                    col[:, i + 1] = -si * hi + ci * hi1
+                a1, a2 = col[:, t].copy(), col[:, t + 1].copy()
+                denom = np.sqrt(a1 * a1 + a2 * a2)
+                safe = np.maximum(denom, np_tiny)
+                c_new = np.where(denom > 0, a1 / safe, npdt.type(1))
+                s_new = np.where(denom > 0, a2 / safe, npdt.type(0))
+                rdd = c_new * a1 + s_new * a2
+                col[:, t] = rdd
+                col[:, t + 1] = 0
+                gj = g[:, t].copy()
+                rmax_new = np.maximum(rmax, np.abs(rdd))
+                brk_new = ((col_host[:, t + 1] <= 3e-4 * col_host[:, t + 2])
+                           | (np.abs(rdd) <= 1e-5 * rmax_new))
+            a = act
+            cs[a, t] = c_new[a]
+            sn[a, t] = s_new[a]
+            g[a, t] = (c_new * gj)[a]
+            g[a, t + 1] = (-s_new * gj)[a]
+            R[a, :, t] = col[a]
+            est[a] = np.abs(g[a, t + 1])
+            rmax[a] = rmax_new[a]
+            brk[a] = brk_new[a]
+            j[a] += 1
+            act = act & (j < m) & (est > tol) & ~brk & (k + j < max_iterations)
+            t += 1
+
+        jmax = int(j.max())
+        Z_acc = Z[:, :jmax].to(acc)
+        del V, Z
+
+        def solution_for(cols):
+            # least squares over each pair's first `cols` columns (R is
+            # triangular, so the truncated problem is exactly the shorter
+            # Arnoldi least squares)
+            used = np.arange(m)[None, :] < cols[:, None]
+            unused = np.where(used, npdt.type(0), npdt.type(1))
+            Rm = R[:, :m, :m] + unused[:, :, None] * np.eye(m, dtype=npdt)
+            gm = np.where(used, g[:, :m], 0).astype(npdt)
+            y = torch.linalg.solve_triangular(torch.from_numpy(Rm),
+                                              torch.from_numpy(gm)[:, :, None], upper=True)
+            y = torch.where(torch.from_numpy(used)[:, :, None], y, 0)
+            y = y[:, :jmax, 0].to(device=dev, dtype=acc)
+            xc = x + torch.bmm(y[:, None, :], Z_acc)[:, 0].to(dt).reshape(x.shape)
+            rc = b - matvec(xc)
+            return xc, torch.sqrt(dot(rc, rc))
+
+        x_new, r_dev = solution_for(j)
+        res_new = _host(r_dev)
+        if truncation_guard:
+            disagree = outer & (res_new > 2.0 * est) & (res_new > tol)
+        else:
+            disagree = outer.copy()
+        if disagree.any():
+            # evaluated for the whole batch, taken only where a pair disagrees
+            x_h, r_h = solution_for((j + 1) // 2)
+            x_q, r_q = solution_for((j + 3) // 4)
+            for xc, rc in zip((x_h, x_q), _host(torch.stack([r_h, r_q]))):
+                take = disagree & (rc < res_new)
+                x_new = torch.where(_bc(_mask(take, dev), x), xc, x_new)
+                res_new = np.where(take, rc, res_new)
+        better = outer & (res_new < res_norm)
+        x = torch.where(_bc(_mask(better, dev), x), x_new, x)
+        stalled = np.where(outer, res_new > 0.99 * res_norm, stalled)
+        res_norm = np.where(better, res_new, res_norm)
+        k = np.where(outer, k + j, k)
+
+    residual_norm = torch.from_numpy(res_norm).to(dev)
+    return KrylovResult(x=x, iterations=torch.from_numpy(k.astype(np.int32)).to(dev),
+                        residual_norm=residual_norm, converged=residual_norm <= tol_dev)

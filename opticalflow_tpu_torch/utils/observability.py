@@ -36,6 +36,11 @@ def reset() -> None:
     _COUNTS.clear()
 
 
+def record_span(name: str, seconds: float) -> None:
+    """Record an externally measured duration as a span."""
+    _SPANS[name].append(float(seconds))
+
+
 @contextlib.contextmanager
 def span(name: str, log: bool = False) -> Iterator[None]:
     """Record a named wall-clock span into the process registry."""

@@ -68,18 +68,18 @@ def test_two_pass_compat_matches_jax(smoothing_sigma):
 
 
 def test_port_raises_for_paths_not_ported():
+    """Only the sharded matvec ('gspmd', ROADMAP A14) is still to port;
+    FGMRES, CG and the hybrid matvec run."""
     movie = bench_movie(n_frames=2, dim=12)
+    with pytest.raises(NotImplementedError):
+        variational_optical_flow(movie, solver=SolverConfig(matvec="gspmd"), **ALPHAS)
     for cfg in (SolverConfig(method="gmres"), SolverConfig(method="cg"),
-                SolverConfig(matvec="hybrid"), SolverConfig(matvec="gspmd")):
-        with pytest.raises(NotImplementedError):
-            variational_optical_flow(movie, solver=cfg, **ALPHAS)
+                SolverConfig(matvec="hybrid")):
+        result = variational_optical_flow(movie, solver=cfg, **ALPHAS)
+        assert np.isfinite(result["v_x"]).all()
     # 'auto' never falls back to BiCGStab where FGMRES is needed
     assert pvar.resolve_method("auto", 500, 7) == jvar.resolve_method("auto", 500, 7) == "gmres"
     assert pvar.resolve_method("auto", 499, 7) == "bicgstab"
-    wide = np.zeros((2, 6, 502), np.float32)
-    wide[:, 2:4, 100:110] = 1.0
-    with pytest.raises(NotImplementedError):
-        variational_optical_flow(wide, **ALPHAS)
 
 
 def test_plain_matvec_and_block_jacobi_agree_with_the_default():

@@ -6,22 +6,26 @@ This file imports no JAX, so it also runs where JAX is not installed:
 
 (``--noconftest`` skips tests/conftest.py, which configures JAX.)
 
-Tolerances: the kernel and its plain version are both float32 on the same
+Tolerances: a kernel and its plain version are both float32 on the same
 card and differ only by rounding (multiply-add contraction and summation
 order), a few ulps of the largest term: each field is held to
-``max|a - b| <= 1e-5 * max|b|``.  The solve on the card and the same solve
-on the CPU converge to the same system to within the refinement exit
-(0.1 x tol), far inside 1e-4 px; measured on the CPU the port and the JAX
-package agree to ~1e-5 px at this size.
+``max|a - b| <= 1e-5 * max|b|``; so is the hybrid matvec (plain-stencil
+kernel plus the boundary ring) against the fused kernel's plain version.
+The solve on the card and the same solve on the CPU converge to the same
+system to within the refinement exit (0.1 x tol), far inside 1e-4 px;
+measured on the CPU the port and the JAX package agree to ~1e-5 px at this
+size.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from opticalflow_tpu_torch import variational_optical_flow
+from opticalflow_tpu_torch import SolverConfig, variational_optical_flow
+from opticalflow_tpu_torch.core import stencils
 from opticalflow_tpu_torch.core.synth import make_translating_blob_movie
 from opticalflow_tpu_torch.ops import cuda_kernels as ck
+from opticalflow_tpu_torch.ops import elop
 
 ALPHAS = [(0.08, 900.0), (0.1, 1000.0), (0.005, 3000.0)]  # normalised (alpha_s, alpha_r)
 
@@ -32,6 +36,12 @@ def _cuda():
     return torch.device("cuda")
 
 
+def _assert_fields_close(y, y_ref):
+    for q in range(3):
+        err = (y[..., q, :, :] - y_ref[..., q, :, :]).abs().max().item()
+        assert err <= 1e-5 * y_ref[..., q, :, :].abs().max().item(), (q, err)
+
+
 def _frames(m, n, batch):
     movie, _ = make_translating_blob_movie(
         n_frames=batch, dimension=max(m, n) + 2, width=10.0, sigma=3.0, v_x=0.2, v_y=0.1)
@@ -39,8 +49,8 @@ def _frames(m, n, batch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,K", [((254, 254), 1), ((254, 254), 27), ((61, 190), 1),
-                                     ((3, 3), 5), ((33, 9), 2)])
+@pytest.mark.parametrize("shape,K", [((254, 254), 1), ((254, 254), 27), ((1022, 1022), 1),
+                                     ((61, 190), 1), ((3, 3), 5), ((33, 9), 2)])
 @pytest.mark.parametrize("compat", [True, False])
 def test_cuda_kernel_matches_plain_version(shape, K, compat):
     dev = _cuda()
@@ -52,26 +62,51 @@ def test_cuda_kernel_matches_plain_version(shape, K, compat):
     launches = ck.LAUNCHES
     y = ck.el_matvec_reduced_fused(frames, scalars, u, compat)
     assert ck.LAUNCHES == launches + 1
-    y_ref = ck.el_matvec_reduced_fused_ref(frames, scalars, u, compat)
+    _assert_fields_close(y, ck.el_matvec_reduced_fused_ref(frames, scalars, u, compat))
     torch.cuda.synchronize()
-    for q in range(3):
-        err = (y[:, :, q] - y_ref[:, :, q]).abs().max().item()
-        assert err <= 1e-5 * y_ref[:, :, q].abs().max().item(), (q, err)
 
 
 @pytest.mark.gpu
-def test_cuda_wrapper_raises_instead_of_falling_back():
+@pytest.mark.parametrize("shape,K", [((254, 254), 1), ((254, 254), 27), ((1022, 1022), 1),
+                                     ((61, 190), 1), ((3, 3), 5), ((33, 9), 2)])
+@pytest.mark.parametrize("compat", [True, False])
+def test_plain_stencil_kernel_and_hybrid_match_plain_versions(shape, K, compat):
+    dev = _cuda()
+    m, n = shape
+    B = len(ALPHAS)
+    frames = torch.from_numpy(_frames(m, n, B)).to(dev)
+    scalars = torch.tensor(ALPHAS, device=dev)
+    u = torch.randn(B, K, 3, m, n, device=dev, generator=torch.Generator(dev).manual_seed(1))
+    launches, fused_launches = ck.CORE_LAUNCHES, ck.LAUNCHES
+    y = ck.el_matvec_plain_core(frames, scalars, u, compat)
+    assert ck.CORE_LAUNCHES == launches + 1
+    _assert_fields_close(y, ck.el_matvec_plain_core_ref(frames, scalars, u, compat))
+    # the hybrid operator (core + ring) is the reduced matvec
+    dy_mode = stencils.DY_COMPAT if compat else stencils.DY_FIXED
+    coeffs = elop.compute_coefficients(frames, scalars[:, 0], scalars[:, 1], dy_mode)
+    ring = elop.ring_coeffs(elop.with_probe_axis(coeffs))
+    y_h = ck.el_matvec_hybrid(frames, scalars, u, compat, ring)
+    assert ck.CORE_LAUNCHES == launches + 2 and ck.LAUNCHES == fused_launches
+    _assert_fields_close(y_h, ck.el_matvec_reduced_fused_ref(frames, scalars, u, compat))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wrapper", [ck.el_matvec_reduced_fused, ck.el_matvec_plain_core])
+def test_cuda_wrapper_raises_instead_of_falling_back(wrapper):
     dev = _cuda()
     m, n = 16, 16
     frames = torch.zeros(2, m + 2, n + 2, device=dev)
     scalars = torch.zeros(2, 2, device=dev)
     u = torch.zeros(2, 3, m, n, device=dev)
+    plain = ck.PLAIN_CALLS, ck.CORE_PLAIN_CALLS
     with pytest.raises(TypeError):
-        ck.el_matvec_reduced_fused(frames.double(), scalars, u, True)
+        wrapper(frames.double(), scalars, u, True)
     with pytest.raises(ValueError):
-        ck.el_matvec_reduced_fused(frames, scalars, u.transpose(-1, -2), True)
+        wrapper(frames, scalars, u.transpose(-1, -2), True)
     with pytest.raises(ValueError):
-        ck.el_matvec_reduced_fused(frames, scalars.cpu(), u, True)
+        wrapper(frames, scalars.cpu(), u, True)
+    assert (ck.PLAIN_CALLS, ck.CORE_PLAIN_CALLS) == plain
 
 
 @pytest.mark.gpu
@@ -84,6 +119,24 @@ def test_solve_on_the_card_runs_the_kernel_and_matches_the_cpu():
     launches, plain = ck.LAUNCHES, ck.PLAIN_CALLS
     on_card = variational_optical_flow(torch.from_numpy(movie).to(dev), **kw)
     assert ck.LAUNCHES > launches and ck.PLAIN_CALLS == plain
+    on_cpu = variational_optical_flow(movie, **kw)
+    assert on_card["converged_all"].all() and on_cpu["converged_all"].all()
+    epe = np.sqrt((on_card["v_x"] - on_cpu["v_x"]) ** 2 + (on_card["v_y"] - on_cpu["v_y"]) ** 2)
+    assert epe[:, 1:-1, 1:-1].max() < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["bicgstab", "gmres"])
+def test_hybrid_solve_on_the_card_runs_the_kernel_and_matches_the_cpu(method):
+    dev = _cuda()
+    movie, _ = make_translating_blob_movie(n_frames=3, dimension=40, width=20.0, sigma=3.0,
+                                           v_x=0.15, v_y=0.1)
+    movie = (movie * 100.0).astype(np.float32)
+    kw = dict(speed_alpha=1000.0, remodelling_alpha=1000.0, warm_start="two-pass",
+              solver=SolverConfig(matvec="hybrid", method=method))
+    counts = ck.CORE_LAUNCHES, ck.CORE_PLAIN_CALLS, ck.LAUNCHES
+    on_card = variational_optical_flow(torch.from_numpy(movie).to(dev), **kw)
+    assert ck.CORE_LAUNCHES > counts[0] and (ck.CORE_PLAIN_CALLS, ck.LAUNCHES) == counts[1:]
     on_cpu = variational_optical_flow(movie, **kw)
     assert on_card["converged_all"].all() and on_cpu["converged_all"].all()
     epe = np.sqrt((on_card["v_x"] - on_cpu["v_x"]) ** 2 + (on_card["v_y"] - on_cpu["v_y"]) ** 2)
