@@ -27,17 +27,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    defaults, once with ``matvec='hybrid'`` (B2) and once with the default
    fused matvec (B1), the counters set to 0 just before each and read just
    after, each held to EPE < 1e-3 px against the oracle; then the phase
-   split (``profile_solve_phases``) of the hybrid solve.
+   split (``profile_solve_phases``) of the hybrid solve;
+6. the sharded path (``parallel``): kernel B3 against its plain version
+   at the shapes the tiled matvec gives it (the 1022x1022 interior as one
+   tile and as 2 x 2 tiles of 511x511, K = 1 and 27; 11 x 254x254; a
+   ragged 2 x 61x190), the tiled matvec against B1's plain version on the
+   (1, 1, 1) and (1, 2, 2) meshes of the one card, timed beside B1; then
+   the 1024x1024 pair solved by ``sharded_variational_solve`` with
+   ``matvec='pallas'`` on both meshes (counters set to 0 just before each
+   and read just after: B3 launched, B1, B2 and every plain version not),
+   each converged and held to EPE < 1e-3 px against phase 5's oracle; and
+   ``distributed_variational_solve`` in a world of one (a gloo process
+   group on 127.0.0.1, the solve on the card) on the bench movie, equal
+   to ``sharded_variational_solve``'s result within 1e-6 px, then again
+   with the default solver (``'auto'``: B1 launched, no other kernel and
+   no plain version).
 
 The second-to-last line is a JSON object with one entry per kernel: its
 launches in each path's run (``launches_by_path``) and their sum
-(``launches``), its largest error and its time per call at 11 pairs of
-254x254.  The last line is ``{"ok": true, "device": {...}}``.  Imports no
-JAX.
+(``launches``); its largest error against its plain version; at its timed
+shape (B1 and B2: 11 pairs of 254x254; B3: the 1022x1022 interior as one
+tile; K = 1), its device time per launch (``ms``, CUDA-graph replays) and
+the plain version's (``plain_ms``), both per back-to-back call
+(``call_ms``, ``plain_call_ms``), the least time the card could take
+(``bound_ms``: the larger of the bytes moved over 3.35 TB/s and the
+operations over 67 TFLOP/s of float32, ``bound_by``), and ``library_ms``
+null (no single PyTorch call computes the EL stencil).  The last line is
+``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
 
 import json
-import statistics
+import socket
 import subprocess
 import sys
 import time
@@ -50,6 +70,12 @@ EPE_LIMIT_PX = 1e-3  # flow endpoint error vs the f64 direct solve / f64 FGMRES 
 N_FRAMES, DIM, ALPHA = 13, 256, 1000.0
 ORACLE_PAIRS = (1, 11)
 LARGE_DIM = 1024  # one pair; blob width 20 * 1024 / 256 as the bench scales it
+SAME_PX = 1e-6  # distributed (world of one) vs sharded_variational_solve, same pairs
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (HBM3)
+F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# float32 operations per output pixel of el_stencil.cuh, counted from its
+# source: 44 to rebuild the coefficients, 24 + 24 + 18 for the three equations
+FLOPS_PER_PIXEL = 110
 
 
 def bench_movie():
@@ -74,22 +100,35 @@ def embryo_pair():
     return (movie * 100.0).astype(np.float32)
 
 
-def cuda_ms(fn, reps, rounds=5):
-    """Milliseconds per call of ``fn()``: CUDA events around ``reps``
-    back-to-back calls, the median of ``rounds`` such runs after warm-up.
-    A call shorter than its host-side launch measures the launch."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(rounds):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
+def bound(N, K, m, n, extended):
+    """(bound_ms, bound_by) of one kernel call on N frame blocks of (m+2,
+    n+2) and K field stacks each: every input read once (I, scalars, the
+    fields: (m, n) planes, or (m+2, n+2) pre-extended), every output plane
+    written once, over the card's memory rate; the stencil's operations over
+    its float32 rate."""
+    field = (m + 2) * (n + 2) if extended else m * n
+    nbytes = 4 * (N * (m + 2) * (n + 2) + 2 * N + 3 * N * K * (field + m * n))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = FLOPS_PER_PIXEL * N * K * m * n / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_kernel(entry, label, kernel_fn, plain_fn, args, shape, card):
+    """The timing keys of a kernel's entry: device and per-call times of
+    the kernel and its plain version on ``args``, and its bound."""
+    from opticalflow_tpu_torch.utils.cuda_timing import call_ms, device_ms
+
+    entry["ms"] = device_ms(lambda: kernel_fn(*args))
+    entry["plain_ms"] = device_ms(lambda: plain_fn(*args), launches=10)
+    entry["call_ms"] = call_ms(lambda: kernel_fn(*args), 50)
+    entry["plain_call_ms"] = call_ms(lambda: plain_fn(*args), 10)
+    entry["bound_ms"], entry["bound_by"] = bound(*shape)
+    entry["library_ms"] = None  # no single PyTorch call computes the EL stencil
+    print(f"{label} timed at N={shape[0]} K={shape[1]} {shape[2]}x{shape[3]}: device "
+          f"{entry['ms'] * 1e3:.3f} us per launch (plain version {entry['plain_ms'] * 1e3:.1f} us), "
+          f"per call {entry['call_ms']:.4f} / {entry['plain_call_ms']:.4f} ms, bound "
+          f"{entry['bound_ms'] * 1e3:.3f} us ({entry['bound_by']}), "
+          f"{entry['bound_ms'] / entry['ms']:.2f} of it  [{card}]", flush=True)
 
 
 def _rel_errors(y, y_ref):
@@ -116,17 +155,19 @@ KERNELS = {
                                 "opticalflow_tpu/ops/pallas_kernels.py:398"),
     "el_matvec_plain_core": ("B2", "opticalflow_tpu_torch/csrc/el_matvec_plain.cu",
                              "opticalflow_tpu/ops/pallas_kernels.py:685"),
+    "el_matvec_extended": ("B3", "opticalflow_tpu_torch/csrc/el_matvec_ext.cu",
+                           "opticalflow_tpu/ops/pallas_kernels.py:70"),
 }
 
 
 def check_kernels(movie, large, dev, card):
-    """Each kernel vs its plain version, and the hybrid matvec vs the fused
-    kernel's plain version, at the shapes of both paths; returns the JSON
-    entry of each kernel (without the launch counts), timed at the first
-    case."""
+    """B1 and B2 vs their plain versions, and the hybrid matvec vs B1's
+    plain version, at the shapes of phases 4 and 5; returns the JSON entry
+    of each kernel (without the launch counts), timed at the first case."""
     from opticalflow_tpu_torch.core import stencils
     from opticalflow_tpu_torch.ops import cuda_kernels as ck
     from opticalflow_tpu_torch.ops import elop
+    from opticalflow_tpu_torch.utils.cuda_timing import call_ms
 
     frames = {"bench": _normalised(movie, dev), "large": _normalised(large[:1], dev)}
     gen = torch.Generator(dev).manual_seed(1)
@@ -141,7 +182,7 @@ def check_kernels(movie, large, dev, card):
     entries = {name: {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                       "max_abs_err": 0.0}
                for name, (_, source, replaces) in KERNELS.items()}
-    for name, which, B, K, m, n, compat, hybrid in cases:
+    for index, (name, which, B, K, m, n, compat, hybrid) in enumerate(cases):
         I_all, scalars_all = frames[which]
         I = I_all[:B, : m + 2, : n + 2].contiguous()
         scalars = scalars_all[:B].contiguous()
@@ -150,25 +191,26 @@ def check_kernels(movie, large, dev, card):
         reps = 50 if B * K * m * n < 3e7 else 10
         gbytes = 4 * (B * (m + 2) * (n + 2) + 6 * B * K * m * n) / 1e9
         ms = {}
-        for kernel in KERNELS:
+        for kernel in ("el_matvec_reduced_fused", "el_matvec_plain_core"):
             kernel_fn, plain_fn = getattr(ck, kernel), getattr(ck, kernel + "_ref")
             y = kernel_fn(I, scalars, u, compat)
             y_ref = plain_fn(I, scalars, u, compat)
             torch.cuda.synchronize()
             rel, err = _rel_errors(y, y_ref)
             del y, y_ref
-            k_ms = cuda_ms(lambda: kernel_fn(I, scalars, u, compat), reps)
-            p_ms = cuda_ms(lambda: plain_fn(I, scalars, u, compat), 10)
+            k_ms = call_ms(lambda: kernel_fn(I, scalars, u, compat), reps)
+            p_ms = call_ms(lambda: plain_fn(I, scalars, u, compat), 10)
             ms[kernel] = k_ms, p_ms
             print(f"{kernel} {name}: max rel err per field "
                   f"{', '.join(f'{r:.2e}' for r in rel)} (tol {REL_TOL:g}); kernel {k_ms:.4f} ms "
-                  f"({gbytes / k_ms * 1e3:.0f} GB/s), plain {p_ms:.4f} ms  [{card}]", flush=True)
+                  f"({gbytes / k_ms * 1e3:.0f} GB/s), plain {p_ms:.4f} ms per call  [{card}]",
+                  flush=True)
             if max(rel) > REL_TOL:
                 raise AssertionError(f"{kernel} disagrees with its plain version: {name}")
-            entry = entries[kernel]
-            entry["max_abs_err"] = max(entry["max_abs_err"], err)
-            if "ms" not in entry:
-                entry["ms"], entry["plain_ms"] = k_ms, p_ms
+            entries[kernel]["max_abs_err"] = max(entries[kernel]["max_abs_err"], err)
+            if index == 0:
+                time_kernel(entries[kernel], KERNELS[kernel][0], kernel_fn, plain_fn,
+                            (I, scalars, u, compat), (B, K, m, n, False), card)
         if hybrid:
             dy_mode = stencils.DY_COMPAT if compat else stencils.DY_FIXED
             ring = elop.ring_coeffs(elop.compute_coefficients(I, scalars[:, 0], scalars[:, 1],
@@ -177,7 +219,7 @@ def check_kernels(movie, large, dev, card):
             y_ref = ck.el_matvec_reduced_fused_ref(I, scalars, u, compat)
             torch.cuda.synchronize()
             rel, _ = _rel_errors(y_h, y_ref)
-            h_ms = cuda_ms(lambda: ck.el_matvec_hybrid(I, scalars, u, compat, ring), reps)
+            h_ms = call_ms(lambda: ck.el_matvec_hybrid(I, scalars, u, compat, ring), reps)
             print(f"el_matvec_hybrid {name}: max rel err per field vs the fused plain version "
                   f"{', '.join(f'{r:.2e}' for r in rel)} (tol {REL_TOL:g}); ms per call: "
                   f"B2 core {ms['el_matvec_plain_core'][0]:.4f}, hybrid {h_ms:.4f}, B1 fused "
@@ -188,11 +230,80 @@ def check_kernels(movie, large, dev, card):
     return entries
 
 
+def check_extended_kernel(movie, large, dev, card, entry):
+    """B3 vs its plain version at the shapes the tiled matvec gives it, and
+    the tiled matvec vs B1's plain version on the (1, 1, 1) and (1, 2, 2)
+    meshes at 1022x1022, timed beside B1; fills B3's JSON entry (timed at
+    the first case)."""
+    from opticalflow_tpu_torch.ops import cuda_kernels as ck
+    from opticalflow_tpu_torch.ops import elop
+    from opticalflow_tpu_torch.parallel import spmd
+    from opticalflow_tpu_torch.parallel.mesh import make_mesh
+    from opticalflow_tpu_torch.utils.cuda_timing import call_ms
+
+    frames = {"bench": _normalised(movie, dev), "large": _normalised(large[:1], dev)}
+    gen = torch.Generator(dev).manual_seed(2)
+    cases = [  # (name, frames, pairs, K, m, n, tx, ty)
+        ("1022x1022 as one tile", "large", 1, 1, 1022, 1022, 1, 1),
+        ("1022x1022 as one tile x 27 probes", "large", 1, 27, 1022, 1022, 1, 1),
+        ("2 x 2 tiles of 511x511", "large", 1, 1, 1022, 1022, 2, 2),
+        ("2 x 2 tiles of 511x511 x 27 probes", "large", 1, 27, 1022, 1022, 2, 2),
+        ("11 pairs 254x254", "bench", 11, 1, 254, 254, 1, 1),
+        ("2 pairs 61x190 ragged", "bench", 2, 1, 61, 190, 1, 1),
+    ]
+    for index, (name, which, pairs, K, m, n, tx, ty) in enumerate(cases):
+        I_all, scalars_all = frames[which]
+        I = I_all[:pairs, : m + 2, : n + 2].contiguous()
+        u = torch.randn((pairs, K, 3, m, n), device=dev, generator=gen)
+        I_t = spmd.to_tiles(I, tx, ty).contiguous()
+        u_t = spmd.to_tiles(elop.extend_interior(u), tx, ty).contiguous()
+        s_t = scalars_all[:pairs].repeat_interleave(tx * ty, dim=0).contiguous()
+        N, mt, nt = I_t.shape[0], m // tx, n // ty
+        y = ck.el_matvec_extended(I_t, s_t, u_t, True)
+        y_ref = ck.el_matvec_extended_ref(I_t, s_t, u_t, True)
+        torch.cuda.synchronize()
+        rel, err = _rel_errors(y, y_ref)
+        del y, y_ref
+        reps = 50 if N * K * mt * nt < 3e7 else 10
+        k_ms = call_ms(lambda: ck.el_matvec_extended(I_t, s_t, u_t, True), reps)
+        p_ms = call_ms(lambda: ck.el_matvec_extended_ref(I_t, s_t, u_t, True), 10)
+        print(f"el_matvec_extended {name} (N={N} blocks, K={K}): max rel err per field "
+              f"{', '.join(f'{r:.2e}' for r in rel)} (tol {REL_TOL:g}); kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms per call  [{card}]", flush=True)
+        if max(rel) > REL_TOL:
+            raise AssertionError(f"el_matvec_extended disagrees with its plain version: {name}")
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if index == 0:
+            time_kernel(entry, "B3", ck.el_matvec_extended, ck.el_matvec_extended_ref,
+                        (I_t, s_t, u_t, True), (N, K, mt, nt, True), card)
+        del I_t, u_t
+
+    # the tiled matvec of the sharded solve against B1's plain version
+    I, scalars = frames["large"]
+    for tx, ty in ((1, 1), (2, 2)):
+        mesh = make_mesh([dev] * (tx * ty), frames=1, tx=tx, ty=ty)
+        mv = spmd.make_sharded_kernel_matvec(mesh, I, scalars[:, 0], scalars[:, 1], "compat")
+        for K in (1, 27):
+            u = torch.randn((1, 3, 1022, 1022) if K == 1 else (1, K, 3, 1022, 1022), device=dev,
+                            generator=gen)
+            rel, _ = _rel_errors(mv(u), ck.el_matvec_reduced_fused_ref(I, scalars, u, True))
+            reps = 50 if K == 1 else 10
+            t_ms = call_ms(lambda: mv(u), reps)
+            b1_ms = call_ms(lambda: ck.el_matvec_reduced_fused(I, scalars, u, True), reps)
+            print(f"tiled matvec, mesh (1, {tx}, {ty}), 1022x1022 K={K}: max rel err per field "
+                  f"vs B1's plain version {', '.join(f'{r:.2e}' for r in rel)} (tol "
+                  f"{REL_TOL:g}); ms per call: tiled (B3) {t_ms:.4f}, B1 {b1_ms:.4f}  [{card}]",
+                  flush=True)
+            if max(rel) > REL_TOL:
+                raise AssertionError(f"tiled matvec (1, {tx}, {ty}) K={K} disagrees with B1")
+
+
 def reset_counters():
     from opticalflow_tpu_torch.ops import cuda_kernels as ck
     from opticalflow_tpu_torch.utils import observability
 
     ck.LAUNCHES = ck.PLAIN_CALLS = ck.CORE_LAUNCHES = ck.CORE_PLAIN_CALLS = 0
+    ck.EXT_LAUNCHES = ck.EXT_PLAIN_CALLS = 0
     observability.reset()
     torch.cuda.synchronize()
 
@@ -202,14 +313,23 @@ def read_counters():
     from opticalflow_tpu_torch.utils import observability
 
     return {"B1": ck.LAUNCHES, "B1 plain": ck.PLAIN_CALLS, "B2": ck.CORE_LAUNCHES,
-            "B2 plain": ck.CORE_PLAIN_CALLS,
+            "B2 plain": ck.CORE_PLAIN_CALLS, "B3": ck.EXT_LAUNCHES,
+            "B3 plain": ck.EXT_PLAIN_CALLS,
             "host syncs": observability.counts().get("krylov/host_syncs", 0)}
+
+
+def bypassed(counts, kernel):
+    """Whether a path run missed its kernel or ran another kernel or any
+    plain version."""
+    others = [k for k in ("B1", "B2", "B3") if k != kernel]
+    plains = [f"{k} plain" for k in ("B1", "B2", "B3")]
+    return counts[kernel] == 0 or any(counts[k] for k in others + plains)
 
 
 def large_grid_path(large, dev, card):
     """The 1024x1024 pair: f64 oracle, then the float32 solve with the
     hybrid matvec (B2) and with the fused one (B1); returns the counts of
-    each of the two runs."""
+    each of the two runs and the oracle."""
     from opticalflow_tpu_torch import SolverConfig, variational_optical_flow
     from opticalflow_tpu_torch.flow.variational import profile_solve_phases
 
@@ -240,7 +360,7 @@ def large_grid_path(large, dev, card):
               f"{EPE_LIMIT_PX:g})  [{card}]", flush=True)
         if not result["converged_all"].all():
             raise AssertionError(f"1024 matvec={matvec!r} did not converge")
-        if counts[kernel] == 0 or counts["B1 plain"] or counts["B2 plain"]:
+        if bypassed(counts, kernel):
             raise AssertionError(f"1024 matvec={matvec!r} bypassed its kernel: {counts}")
         if result["v_x"].shape != (1, LARGE_DIM, LARGE_DIM) or not np.isfinite(result["v_x"]).all():
             raise AssertionError("1024: bad shape or non-finite values")
@@ -252,6 +372,90 @@ def large_grid_path(large, dev, card):
                                   solver=SolverConfig(matvec="hybrid"), reps=1)
     print("1024 hybrid phases (s): " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
           + f"  [{card}]", flush=True)
+    return runs, oracle
+
+
+def sharded_path(large, oracle, movie, dev, card):
+    """Phase 6's runs: the 1024x1024 pair through ``sharded_variational_solve``
+    (``matvec='pallas'``) on the (1, 1, 1) and (1, 2, 2) meshes of the card,
+    then ``distributed_variational_solve`` in a world of one on the bench
+    movie, with ``'pallas'`` and with the default solver; returns the counts
+    of each run."""
+    import torch.distributed as dist
+
+    from opticalflow_tpu_torch import SolverConfig
+    from opticalflow_tpu_torch.parallel import distributed
+    from opticalflow_tpu_torch.parallel.batch import sharded_variational_solve
+    from opticalflow_tpu_torch.parallel.mesh import make_mesh
+
+    kw = dict(speed_alpha=ALPHA, remodelling_alpha=ALPHA, solver=SolverConfig(matvec="pallas"))
+    runs = {}
+    for mesh in (make_mesh(), make_mesh([dev] * 4, frames=1, tx=2, ty=2)):
+        shape = tuple(mesh.shape.values())
+        reset_counters()
+        t0 = time.perf_counter()
+        all_u, infos = sharded_variational_solve(large, mesh=mesh, **kw)
+        all_u = all_u.cpu().numpy()  # synchronised
+        wall = time.perf_counter() - t0
+        counts = read_counters()
+        d = np.sqrt((all_u[:, 0] - oracle["v_x"]) ** 2 + (all_u[:, 1] - oracle["v_y"]) ** 2)
+        e = float(d[0, 1:-1, 1:-1].max())
+        conv = infos["converged"].cpu().numpy()
+        print(f"1024 sharded_variational_solve matvec='pallas' mesh {shape}: {wall:.3f} s, "
+              f"iterations {infos['iterations'].tolist()}, converged {conv.tolist()}, counts "
+              f"{counts}, EPE {e:.3e} px vs the float64 oracle (limit {EPE_LIMIT_PX:g})  [{card}]",
+              flush=True)
+        if not conv.all():
+            raise AssertionError(f"sharded 1024 mesh {shape} did not converge")
+        if bypassed(counts, "B3"):
+            raise AssertionError(f"sharded 1024 mesh {shape} bypassed B3: {counts}")
+        if all_u.shape != (1, 3, LARGE_DIM, LARGE_DIM) or not np.isfinite(all_u).all():
+            raise AssertionError("sharded 1024: bad shape or non-finite values")
+        if not e < EPE_LIMIT_PX:
+            raise AssertionError(f"sharded 1024 mesh {shape}: EPE {e} px")
+        runs[f"{LARGE_DIM}x{LARGE_DIM} sharded {shape}"] = counts
+
+    with socket.socket() as sock:  # a free port for the process group
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    distributed.initialize(coordinator_address=f"127.0.0.1:{port}", num_processes=1,
+                           process_id=0, cpu_devices=1)  # gloo; the solve runs on the card
+    try:
+        reset_counters()
+        t0 = time.perf_counter()
+        local_u, infos = distributed.distributed_variational_solve((movie[:-1], movie[1:]), **kw)
+        wall = time.perf_counter() - t0
+        counts = read_counters()
+        # the default solver ('auto'): B1 untiled
+        reset_counters()
+        t0 = time.perf_counter()
+        _, auto_infos = distributed.distributed_variational_solve(
+            (movie[:-1], movie[1:]), speed_alpha=ALPHA, remodelling_alpha=ALPHA)
+        auto_wall = time.perf_counter() - t0
+        auto_counts = read_counters()
+    finally:
+        dist.destroy_process_group()
+    ref_u, _ = sharded_variational_solve(movie, mesh=make_mesh(), **kw)
+    ref_u = ref_u.cpu().numpy()
+    d = np.sqrt((local_u[:, 0] - ref_u[:, 0]) ** 2 + (local_u[:, 1] - ref_u[:, 1]) ** 2)
+    print(f"distributed_variational_solve, world of one (gloo), {DIM}x{DIM} bench movie: "
+          f"{wall:.3f} s, iterations {infos['iterations'].tolist()}, converged "
+          f"{int(infos['converged'].sum())}/{infos['converged'].size}, counts {counts}, max "
+          f"|difference| vs sharded_variational_solve {float(d.max()):.3e} px (limit "
+          f"{SAME_PX:g})  [{card}]", flush=True)
+    if not infos["converged"].all() or bypassed(counts, "B3"):
+        raise AssertionError(f"distributed solve: not converged or bypassed B3: {counts}")
+    if local_u.shape != (N_FRAMES - 1, 3, DIM, DIM) or not float(d.max()) <= SAME_PX:
+        raise AssertionError("distributed solve differs from sharded_variational_solve")
+    runs[f"{DIM}x{DIM} distributed"] = counts
+    print(f"distributed_variational_solve, world of one, default solver ('auto'): "
+          f"{auto_wall:.3f} s, iterations {auto_infos['iterations'].tolist()}, converged "
+          f"{int(auto_infos['converged'].sum())}/{auto_infos['converged'].size}, counts "
+          f"{auto_counts}  [{card}]", flush=True)
+    if not auto_infos["converged"].all() or bypassed(auto_counts, "B1"):
+        raise AssertionError(f"distributed solve 'auto': not converged or bypassed B1: "
+                             f"{auto_counts}")
+    runs[f"{DIM}x{DIM} distributed auto"] = auto_counts
     return runs
 
 
@@ -296,6 +500,7 @@ def main():
     movie = bench_movie()
     large = embryo_pair()
     entries = check_kernels(movie, large, dev, smi)
+    check_extended_kernel(movie, large, dev, smi, entries["el_matvec_extended"])
 
     # 4. the main path
     movie_t = torch.from_numpy(movie).to(dev)
@@ -320,7 +525,7 @@ def main():
           f"calls {plain}, host syncs {syncs}", flush=True)
     if conv.shape != (n_pairs,) or not conv.all():
         raise AssertionError(f"not every pair converged: {conv.tolist()}")
-    if launches == 0 or plain != 0 or counts["B2 plain"] != 0:
+    if bypassed(counts, "B1"):
         raise AssertionError(f"main path bypassed the kernel: {counts}")
     for key in ("v_x", "v_y", "remodelling"):
         if result[key].shape != (n_pairs, DIM, DIM) or not np.isfinite(result[key]).all():
@@ -333,7 +538,10 @@ def main():
             raise AssertionError(f"pair {k}: EPE {e} px")
 
     # 5. the large-grid path
-    runs = {f"{DIM}x{DIM} two-pass": counts, **large_grid_path(large, dev, smi)}
+    large_runs, oracle = large_grid_path(large, dev, smi)
+    # 6. the sharded path
+    sharded_runs = sharded_path(large, oracle, movie, dev, smi)
+    runs = {f"{DIM}x{DIM} two-pass": counts, **large_runs, **sharded_runs}
 
     for kernel, entry in entries.items():
         label = KERNELS[kernel][0]

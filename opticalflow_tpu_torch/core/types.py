@@ -153,7 +153,8 @@ class SolverConfig:
     # Matvec implementation.  'auto' and 'pallas' select the fused
     # hand-written CUDA kernel (ops.cuda_kernels); 'hybrid' the plain-stencil
     # CUDA kernel with the boundary ring overwritten in torch; 'xla' the
-    # plain stencil on precomputed coefficient planes (ops.elop).  'gspmd'
-    # (sharded solves) is not ported yet (ROADMAP A14) and raises
-    # NotImplementedError.
+    # plain stencil on precomputed coefficient planes (ops.elop); 'gspmd'
+    # the plain stencil too, as in the JAX package.  The sharded solve
+    # (parallel.batch) maps the same names onto a mesh: 'pallas' the tiled
+    # kernel B3, 'xla' the tiled plain stencil, 'auto' B1 untiled.
     matvec: str = "auto"  # 'auto' | 'xla' | 'pallas' | 'hybrid' | 'gspmd'

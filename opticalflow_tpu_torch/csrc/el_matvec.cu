@@ -17,5 +17,5 @@
 extern "C" int el_matvec_reduced_fused(const float* I, const float* scalars,
                                        const float* u, float* out, int B, int K,
                                        int m, int n, int compat, void* stream) {
-  return el_stencil::launch<true>(I, scalars, u, out, B, K, m, n, compat, stream);
+  return el_stencil::launch<el_stencil::kFold>(I, scalars, u, out, B, K, m, n, compat, stream);
 }

@@ -19,5 +19,5 @@
 extern "C" int el_matvec_plain_core(const float* I, const float* scalars, const float* u,
                                     float* out, int B, int K, int m, int n, int compat,
                                     void* stream) {
-  return el_stencil::launch<false>(I, scalars, u, out, B, K, m, n, compat, stream);
+  return el_stencil::launch<el_stencil::kZero>(I, scalars, u, out, B, K, m, n, compat, stream);
 }

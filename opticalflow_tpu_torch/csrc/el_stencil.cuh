@@ -1,12 +1,16 @@
 // The fused reduced Euler-Lagrange stencil shared by the port's matvec
-// kernels (Hopper, sm_90a): el_matvec.cu (mirror folds, TPU kernel B1) and
-// el_matvec_plain.cu (zero reads outside the interior, TPU kernel B2).
+// kernels (Hopper, sm_90a): el_matvec.cu (mirror folds, TPU kernel B1),
+// el_matvec_plain.cu (zero reads outside the interior, TPU kernel B2) and
+// el_matvec_ext.cu (a pre-extended field block, TPU kernel B3).
 //
 // Layout (no TPU container, no padding invariant):
-//   I       (B, m+2, n+2) f32   normalised previous frames
+//   I       (B, m+2, n+2) f32   normalised previous frames (B3: each block
+//                               of the true frame with its one-pixel halo)
 //   scalars (B, 2)        f32   per-pair (alpha_s, alpha_r)
-//   u, out  (B, K, 3, m, n) f32 K field stacks per pair (K = 1 in the Krylov
-//                               loop, 27 for the multigrid comb probes)
+//   u       (B, K, 3, m, n) f32 K field stacks per pair (K = 1 in the Krylov
+//                               loop, 27 for the multigrid comb probes);
+//                               B3: (B, K, 3, m+2, n+2), already extended
+//   out     (B, K, 3, m, n) f32
 //   compat                      dy rule of the whole call (1: dIdy = dIdx)
 //
 // What bounds it: memory.  One application moves 7 planes per field stack
@@ -16,10 +20,11 @@
 // the I tile and the three u tiles, each with a one-pixel halo, in shared
 // memory (coalesced row loads), and every thread then reads its 3x3
 // neighbourhoods from there.  The 11 coefficient planes never touch device
-// memory: they are rebuilt in registers from the staged I tile.  The two
-// kernels differ only in what the halo holds outside the interior, which is
-// decided while staging, so the stencil itself has no selects.  One thread
-// per output pixel, no atomics: results are deterministic.
+// memory: they are rebuilt in registers from the staged I tile.  The three
+// kernels differ only in where the halo tile comes from (the staging rule
+// below), which is decided while staging, so the stencil itself has no
+// selects.  One thread per output pixel, no atomics: results are
+// deterministic.
 
 #pragma once
 
@@ -41,11 +46,18 @@ __device__ __forceinline__ int fold(int e, int len, bool* mirrored) {
   return (e >= 0 && e < len) ? e : -1;
 }
 
-// kMirror = true: the reduced system's mirror extension (elop.extend_interior:
-// row -1 reads row 1, row m reads row m-2, columns likewise, value doubled
-// where both indices were mirrored).  kMirror = false: the plain stencil,
-// field reads outside [0, m) x [0, n) are zero.
-template <bool kMirror>
+// Staging rule of the field's halo tile; each is its own `if constexpr`
+// branch, so each kernel compiles only its own.
+//   kFold: the reduced system's mirror extension (elop.extend_interior:
+//     row -1 reads row 1, row m reads row m-2, columns likewise, value
+//     doubled where both indices were mirrored);
+//   kZero: the plain stencil, field reads outside [0, m) x [0, n) are zero;
+//   kExtended: u is already extended, (m+2, n+2) per plane; tile element
+//     (r, c) is u_ext[i0 + r][j0 + c], with no folds and no select beyond
+//     the ragged-edge bound.
+enum Staging : int { kFold = 0, kZero = 1, kExtended = 2 };
+
+template <int kRule>
 __global__ void __launch_bounds__(kTileX * kTileY)
 el_matvec_kernel(const float* __restrict__ I, const float* __restrict__ scalars,
                  const float* __restrict__ u, float* __restrict__ out,
@@ -62,11 +74,14 @@ el_matvec_kernel(const float* __restrict__ I, const float* __restrict__ scalars,
   const size_t plane = static_cast<size_t>(m) * n;
   const int ni = m + 2, nj = n + 2;
   const float* Ib = I + static_cast<size_t>(b) * ni * nj;
-  const float* ub = u + static_cast<size_t>(bk) * 3 * plane;
+  // field plane: (m, n), or (m+2, n+2) pre-extended
+  const size_t uplane = kRule == kExtended ? static_cast<size_t>(ni) * nj : plane;
+  const float* ub = u + static_cast<size_t>(bk) * 3 * uplane;
   float* ob = out + static_cast<size_t>(bk) * 3 * plane;
 
   // Stage: tile element (r, c) holds frame pixel (i0 + r, j0 + c) of I and
-  // the (extended) interior field value at (i0 - 1 + r, j0 - 1 + c).
+  // the (extended) interior field value at (i0 - 1 + r, j0 - 1 + c), i.e.
+  // extended pixel (i0 + r, j0 + c).
   for (int idx = ty * kTileX + tx; idx < kHaloH * kHaloW; idx += kTileX * kTileY) {
     const int r = idx / kHaloW;
     const int c = idx - r * kHaloW;
@@ -74,7 +89,7 @@ el_matvec_kernel(const float* __restrict__ I, const float* __restrict__ scalars,
     sI[r][c] = (fi < ni && fj < nj) ? Ib[static_cast<size_t>(fi) * nj + fj] : 0.f;
     // (the offset is formed even where it is not read: a select on it costs
     // B1 ~6% of its device time at K = 1)
-    if constexpr (kMirror) {
+    if constexpr (kRule == kFold) {
       bool mr, mc;
       const int si = fold(i0 - 1 + r, m, &mr);
       const int sj = fold(j0 - 1 + c, n, &mc);
@@ -83,12 +98,18 @@ el_matvec_kernel(const float* __restrict__ I, const float* __restrict__ scalars,
       const size_t off = static_cast<size_t>(si) * n + sj;
 #pragma unroll
       for (int q = 0; q < 3; ++q) sU[q][r][c] = ok ? f * ub[q * plane + off] : 0.f;
-    } else {
+    } else if constexpr (kRule == kZero) {
       const int si = i0 - 1 + r, sj = j0 - 1 + c;
       const bool ok = si >= 0 && si < m && sj >= 0 && sj < n;
       const size_t off = static_cast<size_t>(si) * n + sj;
 #pragma unroll
       for (int q = 0; q < 3; ++q) sU[q][r][c] = ok ? ub[q * plane + off] : 0.f;
+    } else {
+      static_assert(kRule == kExtended, "unknown staging rule");
+      const bool ok = fi < ni && fj < nj;
+      const size_t off = static_cast<size_t>(fi) * nj + fj;
+#pragma unroll
+      for (int q = 0; q < 3; ++q) sU[q][r][c] = ok ? ub[q * uplane + off] : 0.f;
     }
   }
   __syncthreads();
@@ -163,13 +184,13 @@ el_matvec_kernel(const float* __restrict__ I, const float* __restrict__ scalars,
 }
 
 // Launches on `stream` and returns cudaGetLastError() of the launch; the
-// caller checks shapes (m, n >= 3, B * K <= 65535) and contiguity.
-template <bool kMirror>
+// caller checks shapes (m, n >= 3 for kFold, B * K <= 65535) and contiguity.
+template <int kRule>
 int launch(const float* I, const float* scalars, const float* u, float* out, int B, int K,
            int m, int n, int compat, void* stream) {
   const dim3 block(kTileX, kTileY);
   const dim3 grid((n + kTileX - 1) / kTileX, (m + kTileY - 1) / kTileY, B * K);
-  el_matvec_kernel<kMirror><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  el_matvec_kernel<kRule><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       I, scalars, u, out, K, m, n, compat);
   return static_cast<int>(cudaGetLastError());
 }

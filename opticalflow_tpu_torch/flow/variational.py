@@ -9,7 +9,8 @@ data, embed the boundary and evaluate the functionals.  The fine-level
 matvec — Krylov steps, V-cycle sweeps and the comb probes of the
 multigrid setup — is a hand-written CUDA kernel on CUDA tensors
 (ops.cuda_kernels): the fused matvec by default, the plain-stencil core
-plus the boundary ring with ``matvec='hybrid'``.
+plus the boundary ring with ``matvec='hybrid'``, or the tiled matvec of a
+mesh (parallel.spmd) that the sharded solve passes as ``matvec_factory``.
 
 Where the JAX package uses ``vmap`` the port carries a leading pair axis,
 and where it uses ``lax.scan`` / ``lax.while_loop`` the port loops in
@@ -38,6 +39,7 @@ from opticalflow_tpu_torch.ops import cuda_kernels, df32, elop
 from opticalflow_tpu_torch.ops.blur import blur_movie
 from opticalflow_tpu_torch.solve import direct, krylov, multigrid
 from opticalflow_tpu_torch.utils import observability
+from opticalflow_tpu_torch.utils.device import resolve_device
 
 
 def _functionals(u, pair: elop.FramePairData, speed_alpha, remodelling_alpha, dy_mode):
@@ -96,16 +98,16 @@ def _make_matvec(matvec_impl: str, prev, speed_alpha, remodelling_alpha, dy_mode
             return cuda_kernels.el_matvec_reduced_fused(I, scalars, u.contiguous(), compat)
 
         return fused
-    if matvec_impl == "xla":
-        # planes (B, m, n) gain a probe axis to broadcast over (B, K, 3, m, n)
+    if matvec_impl in ("xla", "gspmd"):
+        # 'gspmd' is the plain stencil, as in the JAX package (its
+        # _resolve_matvec_impl passes it to the XLA stencil); planes (B, m,
+        # n) gain a probe axis to broadcast over (B, K, 3, m, n)
         stacked = elop.with_probe_axis(coeffs)
 
         def plain(u):
             return elop.el_matvec_reduced(coeffs if u.dim() == 4 else stacked, u)
 
         return plain
-    if matvec_impl == "gspmd":
-        raise NotImplementedError("matvec='gspmd' (sharded solves) is not ported yet: ROADMAP A14")
     raise ValueError(f"unknown matvec {matvec_impl!r}")
 
 
@@ -138,6 +140,7 @@ def solve_frame_pair(
     refinement_exit_factor=None,
     gmres_restart: int = 32,
     phase_timer=None,
+    matvec_factory=None,
 ):
     """Solve the coupled EL systems of a batch of frame pairs (pixel units).
 
@@ -150,7 +153,13 @@ def solve_frame_pair(
     ``phase_timer``: ``None``, or a callable that takes a phase name
     (``pair_data``, ``mg_setup``, ``krylov_main``, ``refinement``) and
     returns a context manager wrapped around that phase
-    (:func:`profile_solve_phases`).
+    (:func:`profile_solve_phases`).  ``matvec_factory``: ``None``, or a
+    callable ``(frames, alpha_s, alpha_r, dy_mode) -> matvec`` that takes
+    the normalised (B, Ni, Nj) frames and the (B,) alphas and returns the
+    fine-level matvec on (B, 3, m, n) and (B, K, 3, m, n) stacks in place
+    of ``matvec_impl``'s (the tiled matvecs of parallel.spmd).  The comb
+    probes of the multigrid setup go through it too; the df32 refinement
+    stays global.
     """
     with _phase(phase_timer, "pair_data"):
         dtype = previous_frame.dtype
@@ -177,7 +186,10 @@ def solve_frame_pair(
                    "gmres": functools.partial(krylov.fgmres, restart=gmres_restart)}
         if method not in solvers:
             raise ValueError(f"unknown method {method!r}")
-        matvec = _make_matvec(matvec_impl, prev, a_s, a_r, dy_mode, pair.coeffs)
+        if matvec_factory is None:
+            matvec = _make_matvec(matvec_impl, prev, a_s, a_r, dy_mode, pair.coeffs)
+        else:
+            matvec = matvec_factory(prev, a_s, a_r, dy_mode)
 
     # 2 damped block-Jacobi sweeps per half-cycle below 500 interior
     # points, 4 at/above.
@@ -356,16 +368,15 @@ def variational_optical_flow(
     ``variational_optical_flow``, plus ``device``.
 
     ``movie``: (T, X, Y) numpy array or tensor.  ``device``: where the
-    solve runs; ``None`` means the movie's device for a tensor and the CPU
-    for an array.  ``dtype``: the working type, float32 when ``None`` (the
+    solve runs; ``None`` means the CUDA device (it raises without one),
+    ``'cpu'`` the CPU.  ``dtype``: the working type, float32 when ``None`` (the
     fused kernel takes float32 only).  With ``dy_mode='compat'`` the
     reference's ``speed_functional`` key duplication is reproduced and the
     correct value is stored under ``'speed_functional_corrected'``.
     """
     solver = solver or SolverConfig()
     dtype = dtype or torch.float32
-    if device is None:
-        device = movie.device if isinstance(movie, torch.Tensor) else torch.device("cpu")
+    device = resolve_device(device)
     movie = torch.as_tensor(movie).to(device=device, dtype=dtype)
     if smoothing_sigma is not None:
         movie_to_analyse = blur_movie(movie, smoothing_sigma=smoothing_sigma)
@@ -458,6 +469,7 @@ def profile_solve_phases(
     dy_mode: str = stencils.DY_COMPAT,
     solver: Optional[SolverConfig] = None,
     reps: int = 3,
+    device=None,
 ) -> dict:
     """Per-phase wall-clock breakdown of one production frame-pair solve.
 
@@ -473,11 +485,12 @@ def profile_solve_phases(
     ``solve_frame_pair`` runs ``reps`` times and each phase is timed
     directly on the host clock between device synchronisations; each
     value is its phase's best over the runs.  ``previous_frame`` /
-    ``current_frame`` are (Ni, Nj) arrays or tensors; the solve runs on the
-    tensor's device (the CPU for an array), in its dtype.
+    ``current_frame`` are (Ni, Nj) arrays or tensors; the solve runs on
+    ``device`` (``None``: the CUDA device; ``'cpu'``: the CPU) in the
+    previous frame's dtype.
     """
     solver = solver or SolverConfig()
-    prev = torch.as_tensor(previous_frame)
+    prev = torch.as_tensor(previous_frame).to(resolve_device(device))
     cur = torch.as_tensor(current_frame).to(prev)
     u0 = torch.zeros((3,) + tuple(prev.shape), dtype=prev.dtype, device=prev.device)
 

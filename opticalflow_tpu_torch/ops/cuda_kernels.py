@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the port, their builds, wrappers and plain
 versions.
 
-Two kernels, both on the stencil of ``csrc/el_stencil.cuh``:
+Three kernels, all on the stencil of ``csrc/el_stencil.cuh``:
 
 * the fused reduced Euler-Lagrange matvec (``csrc/el_matvec.cu``), the
   Hopper counterpart of the TPU kernel
@@ -15,7 +15,12 @@ Two kernels, both on the stencil of ``csrc/el_stencil.cuh``:
   counters ``CORE_LAUNCHES`` and ``CORE_PLAIN_CALLS``.  With the boundary
   ring overwritten by ``elop.ring_apply`` it is the hybrid matvec
   (:func:`el_matvec_hybrid`, the counterpart of ``make_hybrid_ops``), which
-  equals the fused matvec.
+  equals the fused matvec;
+* the stencil on pre-extended blocks (``csrc/el_matvec_ext.cu``), the
+  counterpart of ``pallas_kernels.py::_el_matvec_kernel``, the kernel of the
+  tiled matvec (parallel.spmd): wrapper :func:`el_matvec_extended`, plain
+  version :func:`el_matvec_extended_ref`, counters ``EXT_LAUNCHES`` and
+  ``EXT_PLAIN_CALLS``.
 
 On CPU tensors a wrapper runs its plain version; on CUDA tensors it checks
 device, dtype, shape and contiguity, launches its kernel on the current
@@ -36,7 +41,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +53,8 @@ LAUNCHES = 0  # kernel launches by el_matvec_reduced_fused
 PLAIN_CALLS = 0  # calls of the plain version el_matvec_reduced_fused_ref
 CORE_LAUNCHES = 0  # kernel launches by el_matvec_plain_core
 CORE_PLAIN_CALLS = 0  # calls of the plain version el_matvec_plain_core_ref
+EXT_LAUNCHES = 0  # kernel launches by el_matvec_extended
+EXT_PLAIN_CALLS = 0  # calls of the plain version el_matvec_extended_ref
 BUILD_SECONDS = None  # wall time of this process's nvcc builds, if it built
 BUILD_LOG = ""  # nvcc's output of those builds (-Xptxas -v: registers, smem)
 
@@ -59,7 +66,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # C entry point of each source; all take (I, scalars, u, out, B, K, m, n,
 # compat, stream)
 ENTRY_POINTS = {"el_matvec.cu": "el_matvec_reduced_fused",
-                "el_matvec_plain.cu": "el_matvec_plain_core"}
+                "el_matvec_plain.cu": "el_matvec_plain_core",
+                "el_matvec_ext.cu": "el_matvec_extended"}
 
 _FUNCTIONS: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -75,25 +83,29 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
 
 
-def load_library() -> Dict[str, ctypes._CFuncPtr]:
-    """Build (once per version of the sources) and load every kernel;
-    returns the C entry points by name."""
+def build(source_dir: str = SOURCE_DIR) -> Dict[str, ctypes._CFuncPtr]:
+    """Build (once per version of the sources under ``source_dir``) and load
+    each source of ``ENTRY_POINTS`` that ``source_dir`` holds into
+    ``BUILD_DIR``; returns the C entry points by name.  Another version's
+    ``csrc`` builds beside this one's (the libraries are keyed by the
+    sources' hash).  Sets ``BUILD_SECONDS`` and ``BUILD_LOG`` when it
+    compiles."""
     global BUILD_SECONDS, BUILD_LOG
-    if _FUNCTIONS:
-        return _FUNCTIONS
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(glob.glob(os.path.join(SOURCE_DIR, "*.cu*"))):  # headers too
+    for path in sorted(glob.glob(os.path.join(source_dir, "*.cu*"))):  # headers too
         with open(path, "rb") as fh:
             h.update(os.path.basename(path).encode() + b"\0" + fh.read())
     digest = h.hexdigest()[:16]
-    libs = {src: os.path.join(BUILD_DIR, f"lib{src[:-3]}_{digest}.so") for src in ENTRY_POINTS}
+    entry_points = {src: entry for src, entry in ENTRY_POINTS.items()
+                    if os.path.exists(os.path.join(source_dir, src))}
+    libs = {src: os.path.join(BUILD_DIR, f"lib{src[:-3]}_{digest}.so") for src in entry_points}
     missing = [src for src, lib in libs.items() if not os.path.exists(lib)]
     if missing:
         os.makedirs(BUILD_DIR, exist_ok=True)
         t0 = time.perf_counter()
         procs = {src: subprocess.Popen(  # one nvcc per source, all at once
             [_nvcc(), *NVCC_FLAGS, "-o", f"{libs[src]}.{os.getpid()}.tmp",
-             os.path.join(SOURCE_DIR, src)],
+             os.path.join(source_dir, src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for src in missing}
         logs = {src: proc.communicate()[0] for src, proc in procs.items()}
         BUILD_SECONDS = time.perf_counter() - t0
@@ -104,27 +116,39 @@ def load_library() -> Dict[str, ctypes._CFuncPtr]:
         for src in missing:
             os.replace(f"{libs[src]}.{os.getpid()}.tmp", libs[src])
     functions = {}
-    for src, entry in ENTRY_POINTS.items():
+    for src, entry in entry_points.items():
         fn = getattr(ctypes.CDLL(libs[src]), entry)
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         functions[entry] = fn
-    _FUNCTIONS.update(functions)
+    return functions
+
+
+def load_library() -> Dict[str, ctypes._CFuncPtr]:
+    """Build (once per version of the sources) and load every kernel of
+    ``ENTRY_POINTS``; returns the C entry points by name."""
+    if not _FUNCTIONS:
+        _FUNCTIONS.update(build())
     return _FUNCTIONS
 
 
-def _check_shapes(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor):
-    """(B, K, m, n) of a call, or ValueError."""
+def _check_shapes(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor,
+                  extended: bool = False):
+    """(B, K, m, n) of a call, or ValueError.  ``u`` is (B, [K,] 3, m, n),
+    or with ``extended`` the pre-extended (B, [K,] 3, m+2, n+2), whose
+    interior may be as small as 1x1 (it needs no mirror rows)."""
+    halo = 2 if extended else 0
     if u.dim() not in (4, 5) or u.shape[-3] != 3:
-        raise ValueError(f"u must be (B, 3, m, n) or (B, K, 3, m, n), got {tuple(u.shape)}")
-    B, m, n = u.shape[0], u.shape[-2], u.shape[-1]
+        raise ValueError(f"u must be (B, 3, M, N) or (B, K, 3, M, N), got {tuple(u.shape)}")
+    B, m, n = u.shape[0], u.shape[-2] - halo, u.shape[-1] - halo
     K = u.shape[1] if u.dim() == 5 else 1
     if tuple(I.shape) != (B, m + 2, n + 2):
         raise ValueError(f"I must be {(B, m + 2, n + 2)}, got {tuple(I.shape)}")
     if tuple(scalars.shape) != (B, 2):
         raise ValueError(f"scalars must be {(B, 2)}, got {tuple(scalars.shape)}")
-    if m < 3 or n < 3:
-        raise ValueError(f"the interior must be at least 3x3, got {m}x{n}")
+    smallest = 1 if extended else 3
+    if m < smallest or n < smallest:
+        raise ValueError(f"the interior must be at least {smallest}x{smallest}, got {m}x{n}")
     return B, K, m, n
 
 
@@ -133,11 +157,13 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
 
 
 def _launch(entry: str, I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor,
-            compat: bool) -> torch.Tensor:
-    """Check the operands of a kernel call and launch ``entry`` on the
+            compat: bool, extended: bool = False,
+            library: Optional[Dict[str, ctypes._CFuncPtr]] = None) -> torch.Tensor:
+    """Check the operands of a kernel call and launch ``entry`` of
+    ``library`` (a :func:`build`; this checkout's when ``None``) on the
     current stream; raises on anything the kernel does not take and on a
     failed launch."""
-    B, K, m, n = _check_shapes(I, scalars, u)
+    B, K, m, n = _check_shapes(I, scalars, u, extended)
     for name, t in (("I", I), ("scalars", scalars), ("u", u)):
         if t.device != u.device or t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}; all operands must be on one CUDA device")
@@ -147,8 +173,8 @@ def _launch(entry: str, I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     if B * K > 65535:
         raise ValueError(f"B*K = {B * K} exceeds the grid's z limit 65535")
-    fn = load_library()[entry]
-    out = torch.empty_like(u)
+    fn = (library or load_library())[entry]
+    out = u.new_empty(u.shape[:-2] + (m, n))
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         rc = fn(I.data_ptr(), scalars.data_ptr(), u.data_ptr(), out.data_ptr(),
@@ -225,3 +251,28 @@ def el_matvec_hybrid(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor, co
     coefficient planes of ``I`` (``elop.ring_coeffs``), with a probe axis
     when ``u`` is a (B, K, 3, m, n) stack."""
     return elop.ring_overwrite(el_matvec_plain_core(I, scalars, u, compat), ring, u)
+
+
+def el_matvec_extended_ref(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor,
+                           compat: bool) -> torch.Tensor:
+    """Plain PyTorch version of the kernel on pre-extended blocks: ``I``
+    (N, m+2, n+2) blocks of the true frame with their halo, ``scalars``
+    (N, 2), ``u`` (N, 3, m+2, n+2) or (N, K, 3, m+2, n+2) field blocks
+    already extended; returns the EL stencil (N, [K,] 3, m, n)."""
+    global EXT_PLAIN_CALLS
+    _check_shapes(I, scalars, u, extended=True)
+    EXT_PLAIN_CALLS += 1
+    return elop.interior_apply(_coefficients(I, scalars, u, compat), u)
+
+
+def el_matvec_extended(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor,
+                       compat: bool) -> torch.Tensor:
+    """The stencil on pre-extended blocks of :func:`el_matvec_extended_ref`;
+    CUDA tensors go through the hand-written kernel, CPU tensors through
+    the plain version."""
+    global EXT_LAUNCHES
+    if _on_cpu(I, scalars, u):
+        return el_matvec_extended_ref(I, scalars, u, compat)
+    out = _launch("el_matvec_extended", I, scalars, u, compat, extended=True)
+    EXT_LAUNCHES += 1
+    return out

@@ -14,9 +14,11 @@ the interior stencil ("reduced" system, :func:`extend_interior`).
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from opticalflow_tpu_torch.core import stencils
 from opticalflow_tpu_torch.ops import df32
@@ -171,14 +173,15 @@ def interior_apply(coeffs: ELCoefficients, u: torch.Tensor) -> torch.Tensor:
 def _extend_with_corners(u_int: torch.Tensor, corner_factor: float) -> torch.Tensor:
     """Surround an interior stack ``(..., m, n)`` with mirror boundary
     values (row -1 reads row 1, row m reads row m-2, columns likewise);
-    the four corners are scaled by ``corner_factor``."""
-    wide = torch.cat([u_int[..., :, 1:2], u_int, u_int[..., :, -2:-1]], dim=-1)
-    top = wide[..., 1:2, :].clone()
-    bottom = wide[..., -2:-1, :].clone()
-    for edge in (top, bottom):
-        edge[..., 0] *= corner_factor
-        edge[..., -1] *= corner_factor
-    return torch.cat([top, wide, bottom], dim=-2)
+    the four corners are scaled by ``corner_factor``.  Two ops: a reflect
+    pad (its corner (-1, -1) reads (1, 1), the mirror of the mirror) and
+    one in-place scale of the corners."""
+    lead, (m, n) = u_int.shape[:-2], u_int.shape[-2:]
+    flat = u_int.reshape((math.prod(lead), m, n))  # reflect pads 3-d tensors
+    ext = F.pad(flat, (1, 1, 1, 1), mode="reflect").reshape(lead + (m + 2, n + 2))
+    if corner_factor != 1.0:
+        ext[..., :: m + 1, :: n + 1] *= corner_factor
+    return ext
 
 
 def extend_interior(u_int: torch.Tensor) -> torch.Tensor:

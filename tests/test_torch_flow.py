@@ -44,9 +44,10 @@ def epe(a, b):
 def check_slice(warm_start, dy_mode, smoothing_sigma=None):
     movie = bench_movie()
     kw = dict(ALPHAS, warm_start=warm_start, dy_mode=dy_mode, smoothing_sigma=smoothing_sigma)
-    ours = variational_optical_flow(movie, dtype=torch.float32, **kw)
+    ours = variational_optical_flow(movie, dtype=torch.float32, device="cpu", **kw)
     theirs = jvar.variational_optical_flow(movie, dtype=jnp.float32, **kw)
-    oracle = variational_optical_flow(movie, dtype=torch.float64, use_direct_solver=True, **kw)
+    oracle = variational_optical_flow(movie, dtype=torch.float64, use_direct_solver=True,
+                                      device="cpu", **kw)
 
     assert sorted(ours.keys()) == sorted(theirs.keys())
     assert ours["converged_all"].all() and np.asarray(theirs["converged_all"]).all()
@@ -68,14 +69,20 @@ def test_two_pass_compat_matches_jax(smoothing_sigma):
 
 
 def test_port_raises_for_paths_not_ported():
-    """Only the sharded matvec ('gspmd', ROADMAP A14) is still to port;
-    FGMRES, CG and the hybrid matvec run."""
+    """Every path of the single-pair solve is ported: FGMRES, CG and the
+    hybrid matvec run, and 'gspmd' selects the plain stencil, as in the JAX
+    package (its _resolve_matvec_impl), so it equals 'xla' exactly."""
     movie = bench_movie(n_frames=2, dim=12)
-    with pytest.raises(NotImplementedError):
-        variational_optical_flow(movie, solver=SolverConfig(matvec="gspmd"), **ALPHAS)
+    gspmd = variational_optical_flow(movie, solver=SolverConfig(matvec="gspmd"), device="cpu",
+                                     **ALPHAS)
+    xla = variational_optical_flow(movie, solver=SolverConfig(matvec="xla"), device="cpu",
+                                   **ALPHAS)
+    assert gspmd["converged_all"].all()
+    for key in ("v_x", "v_y", "remodelling", "iterations"):
+        np.testing.assert_array_equal(gspmd[key], xla[key])
     for cfg in (SolverConfig(method="gmres"), SolverConfig(method="cg"),
                 SolverConfig(matvec="hybrid")):
-        result = variational_optical_flow(movie, solver=cfg, **ALPHAS)
+        result = variational_optical_flow(movie, solver=cfg, device="cpu", **ALPHAS)
         assert np.isfinite(result["v_x"]).all()
     # 'auto' never falls back to BiCGStab where FGMRES is needed
     assert pvar.resolve_method("auto", 500, 7) == jvar.resolve_method("auto", 500, 7) == "gmres"
@@ -89,7 +96,7 @@ def test_plain_matvec_and_block_jacobi_agree_with_the_default():
     solution."""
     movie = bench_movie(n_frames=4, dim=24)
     kw = dict(ALPHAS, warm_start="cold")
-    base = variational_optical_flow(movie, **kw)
+    base = variational_optical_flow(movie, device="cpu", **kw)
     for cfg in (SolverConfig(matvec="xla"), SolverConfig(preconditioner="block_jacobi")):
-        other = variational_optical_flow(movie, solver=cfg, **kw)
+        other = variational_optical_flow(movie, solver=cfg, device="cpu", **kw)
         assert other["converged_all"].all() and epe(base, other) < 1e-4

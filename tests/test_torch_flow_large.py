@@ -55,7 +55,7 @@ def epe(a, b):
 def references():
     movie = strip_movie()
     oracle = variational_optical_flow(movie, dtype=torch.float64, use_direct_solver=True,
-                                      **ALPHAS)
+                                      device="cpu", **ALPHAS)
     jax_runs = {exit_factor: jvar.variational_optical_flow(
         movie, dtype=jnp.float32, solver=JaxSolverConfig(
             matvec="xla", refinement_exit_factor=exit_factor), **ALPHAS)
@@ -68,7 +68,7 @@ def references():
 def _solve(movie, matvec, exit_factor=None):
     plain = ck.PLAIN_CALLS, ck.CORE_PLAIN_CALLS
     ours = variational_optical_flow(
-        movie, dtype=torch.float32,
+        movie, dtype=torch.float32, device="cpu",
         solver=SolverConfig(matvec=matvec, refinement_exit_factor=exit_factor), **ALPHAS)
     # the CPU wrappers ran the plain version of the matvec asked for
     if matvec == "hybrid":

@@ -23,7 +23,8 @@ def test_profile_solve_phases_keys_and_spans(method):
     movie = (movie * 100.0).astype(np.float32)
     observability.reset()
     phases = pvar.profile_solve_phases(movie[0], torch.from_numpy(movie[1]),
-                                       solver=SolverConfig(method=method), reps=2)
+                                       solver=SolverConfig(method=method), reps=2,
+                                       device="cpu")
     assert tuple(phases) == JAX_KEYS
     assert all(v >= 0.0 for v in phases.values())
     assert phases["krylov_main"] > 0.0 and phases["refinement"] > 0.0
