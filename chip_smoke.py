@@ -41,7 +41,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    group on 127.0.0.1, the solve on the card) on the bench movie, equal
    to ``sharded_variational_solve``'s result within 1e-6 px, then again
    with the default solver (``'auto'``: B1 launched, no other kernel and
-   no plain version).
+   no plain version);
+7. the sweep path (``analysis.sweeps.vary_regularisation``, batched): the
+   300-solve grid of BASELINE config 5 (one 128x128 pair, 15 x 20 alphas
+   on logspace(1, 5), rtol 1e-6) once timed after a 2 x 2 warm-up, the
+   counters set to 0 just before it and read just after (B1 launched, no
+   plain version), solves/s, chunks, converged cells and each chunk's
+   largest iteration count, every statistic finite on the converged cells,
+   and three interior cells held against the serial path
+   (``batched=False``); phase 3 holds B1 against its plain version at the
+   sweep's chunk shape (the default chunk's 150 pairs of 126x126, K = 1
+   and 27) and times it;
+8. the other analyses on the bench movie: box flow (with and without
+   remodelling), the box-size and blur-size sweeps at their defaults on
+   pair (3, 4), Liu-Shen (10 sweeps), CLAHE, the adaptive threshold and the
+   area resize, each on the card and on the CPU, held to a stated bound.
 
 The second-to-last line is a JSON object with one entry per kernel: its
 launches in each path's run (``launches_by_path``) and their sum
@@ -52,7 +66,9 @@ the plain version's (``plain_ms``), both per back-to-back call
 (``call_ms``, ``plain_call_ms``), the least time the card could take
 (``bound_ms``: the larger of the bytes moved over 3.35 TB/s and the
 operations over 67 TFLOP/s of float32, ``bound_by``), and ``library_ms``
-null (no single PyTorch call computes the EL stencil).  The last line is
+null (no single PyTorch call computes the EL stencil); B1's entry has the
+same timing keys at the sweep's shape under ``at_sweep_shape``.  The last
+line is
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
 
@@ -76,6 +92,16 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # float32 operations per output pixel of el_stencil.cuh, counted from its
 # source: 44 to rebuild the coefficients, 24 + 24 + 18 for the three equations
 FLOPS_PER_PIXEL = 110
+# phase 7: cells of the 15 x 20 grid held against the serial path, and the
+# bound on |batched - serial| of their speed and remodelling means,
+# relative to the field's scale, max(|mean|, standard deviation).  Both
+# solve the same float32 system to rtol 1e-6, but a batch of 300 pairs
+# reduces in another order than one pair, so the two stop at different
+# iterates.  The scale is not the mean alone: the remodelling field takes
+# both signs, and its mean can be 1% of its spread (cell (3, 5)).
+SWEEP_CELLS = ((3, 5), (7, 10), (11, 15))
+SWEEP_REL_TOL = 1e-4
+ANALYSIS_PAIR = 3  # phase 8's sweeps run on pair (3, 4) of the bench movie
 
 
 def bench_movie():
@@ -114,8 +140,9 @@ def bound(N, K, m, n, extended):
 
 
 def time_kernel(entry, label, kernel_fn, plain_fn, args, shape, card):
-    """The timing keys of a kernel's entry: device and per-call times of
-    the kernel and its plain version on ``args``, and its bound."""
+    """Fill ``entry`` with the timing keys of a kernel at one shape: device
+    and per-call times of the kernel and its plain version on ``args``,
+    and its bound."""
     from opticalflow_tpu_torch.utils.cuda_timing import call_ms, device_ms
 
     entry["ms"] = device_ms(lambda: kernel_fn(*args))
@@ -139,6 +166,30 @@ def _rel_errors(y, y_ref):
         rel.append(err / y_ref[..., q, :, :].abs().max().item())
         max_abs = max(max_abs, err)
     return rel, max_abs
+
+
+def sweep_chunk():
+    """Solves per chunk of the batched sweep at its default (one pair per
+    cell), at most the grid's 300."""
+    from opticalflow_tpu_torch.analysis.sweeps import DEFAULT_BATCH_CHUNK
+    from opticalflow_tpu_torch.utils.sweep_chunks import REMODELLING_ALPHAS, SPEED_ALPHAS
+
+    return min(DEFAULT_BATCH_CHUNK, SPEED_ALPHAS.size * REMODELLING_ALPHAS.size)
+
+
+def _sweep_operands(dev):
+    """B1's operands in the sweep path's first chunk: the 128x128 pair's
+    normalised previous frame once per cell, each cell's (alpha_s / s^2,
+    alpha_r)."""
+    from opticalflow_tpu_torch.utils.sweep_chunks import REMODELLING_ALPHAS, SPEED_ALPHAS, sweep_movie
+
+    n = sweep_chunk()
+    frame = torch.from_numpy(sweep_movie()[0] + 1e-4).to(dev)
+    scale = frame.max()
+    grid = torch.tensor([[a, b] for a in SPEED_ALPHAS for b in REMODELLING_ALPHAS][:n],
+                        dtype=torch.float32, device=dev)
+    I = (frame / scale).expand(n, *frame.shape).contiguous()
+    return I, torch.stack([grid[:, 0] / scale**2, grid[:, 1]], dim=-1).contiguous()
 
 
 def _normalised(movie, dev):
@@ -169,8 +220,10 @@ def check_kernels(movie, large, dev, card):
     from opticalflow_tpu_torch.ops import elop
     from opticalflow_tpu_torch.utils.cuda_timing import call_ms
 
-    frames = {"bench": _normalised(movie, dev), "large": _normalised(large[:1], dev)}
+    frames = {"bench": _normalised(movie, dev), "large": _normalised(large[:1], dev),
+              "sweep": _sweep_operands(dev)}
     gen = torch.Generator(dev).manual_seed(1)
+    n_sweep = sweep_chunk()
     cases = [  # (name, frames, B, K, m, n, compat, hybrid too)
         ("11 pairs 254x254 compat", "bench", 11, 1, 254, 254, True, True),
         ("11 pairs 254x254 fixed", "bench", 11, 1, 254, 254, False, False),
@@ -178,6 +231,10 @@ def check_kernels(movie, large, dev, card):
         ("1 pair 1022x1022", "large", 1, 1, 1022, 1022, True, True),
         ("1 pair x 27 probes 1022x1022", "large", 1, 27, 1022, 1022, True, False),
         ("2 pairs 61x190 ragged", "bench", 2, 1, 61, 190, True, False),
+        # the sweep path's one chunk: every cell's alphas on the same frame
+        (f"{n_sweep} cells 126x126 (sweep)", "sweep", n_sweep, 1, 126, 126, True, False),
+        (f"{n_sweep} cells x 27 probes 126x126 (sweep)", "sweep", n_sweep, 27, 126, 126, True,
+         False),
     ]
     entries = {name: {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                       "max_abs_err": 0.0}
@@ -211,6 +268,11 @@ def check_kernels(movie, large, dev, card):
             if index == 0:
                 time_kernel(entries[kernel], KERNELS[kernel][0], kernel_fn, plain_fn,
                             (I, scalars, u, compat), (B, K, m, n, False), card)
+            elif which == "sweep" and kernel == "el_matvec_reduced_fused":
+                # B1 also timed at the sweep path's shape
+                timed = entries[kernel].setdefault("at_sweep_shape", {})[f"N={B} K={K}"] = {}
+                time_kernel(timed, "B1 (sweep)", kernel_fn, plain_fn, (I, scalars, u, compat),
+                            (B, K, m, n, False), card)
         if hybrid:
             dy_mode = stencils.DY_COMPAT if compat else stencils.DY_FIXED
             ring = elop.ring_coeffs(elop.compute_coefficients(I, scalars[:, 0], scalars[:, 1],
@@ -459,6 +521,154 @@ def sharded_path(large, oracle, movie, dev, card):
     return runs
 
 
+def sweep_path(card):
+    """Phase 7: the 300-solve regularisation sweep of BASELINE config 5 (one
+    128x128 pair, 15 x 20 alphas on logspace(1, 5), rtol 1e-6) batched on
+    the card, after a 2 x 2 warm-up of interior cells; B1 launched and no
+    plain version, every statistic finite on the converged cells, and three
+    interior cells equal to the serial path's; returns the timed run's
+    counts."""
+    from opticalflow_tpu_torch import SolverConfig
+    from opticalflow_tpu_torch.analysis.sweeps import vary_regularisation
+    from opticalflow_tpu_torch.utils import observability
+    from opticalflow_tpu_torch.utils.sweep_chunks import REMODELLING_ALPHAS, SPEED_ALPHAS, sweep_movie
+
+    movie = sweep_movie()
+    cfg = SolverConfig(rtol=1e-6)
+    t0 = time.perf_counter()
+    vary_regularisation(movie, SPEED_ALPHAS[7:9], REMODELLING_ALPHAS[7:9], solver=cfg)
+    warm_s = time.perf_counter() - t0
+    reset_counters()
+    t0 = time.perf_counter()
+    res = vary_regularisation(movie + 1e-4, SPEED_ALPHAS, REMODELLING_ALPHAS, solver=cfg)
+    wall = time.perf_counter() - t0  # returns host arrays: synchronised
+    counts = read_counters()
+    chunk_its = [int(v) for v in observability.values()["sweep/chunk_max_iterations"]]
+    chunk_s = observability.span_statistics()["sweep/chunk"]
+    conv = res["converged"]
+    n = conv.size
+    print(f"sweep path: {n} solves of 128x128 in {wall:.3f} s = {n / wall:.3f} solves/s "
+          f"(warm-up 2x2 grid {warm_s:.3f} s), {len(chunk_its)} chunks of <= {sweep_chunk()} "
+          f"solves, converged {int(conv.sum())}/{n}, chunk max iterations {chunk_its}, chunk "
+          f"seconds max {chunk_s['max']:.3f}, B1 launches {counts['B1']}, plain calls "
+          f"{counts['B1 plain']}, host syncs {counts['host syncs']}  [{card}]", flush=True)
+    print("  converged cells (rows: alpha_s, columns: alpha_r):\n" + "\n".join(
+        "  " + "".join(str(int(c)) for c in row) for row in conv), flush=True)
+    if bypassed(counts, "B1"):
+        raise AssertionError(f"sweep path bypassed B1: {counts}")
+    if conv.shape != (SPEED_ALPHAS.size, REMODELLING_ALPHAS.size) or not conv.any():
+        raise AssertionError("sweep: bad shape or no cell converged")
+    for key in ("speed_means", "speed_variances", "remodelling_means", "remodelling_variances",
+                "functional", "functional_ref_compat"):
+        if res[key].shape != conv.shape or not np.isfinite(res[key][conv]).all():
+            raise AssertionError(f"sweep {key}: bad shape or non-finite on converged cells")
+    for i, j in SWEEP_CELLS:
+        t0 = time.perf_counter()
+        serial = vary_regularisation(movie + 1e-4, SPEED_ALPHAS[i : i + 1],
+                                     REMODELLING_ALPHAS[j : j + 1], batched=False, solver=cfg)
+        rel = {}
+        for field in ("speed", "remodelling"):
+            mean, var = serial[f"{field}_means"][0, 0], serial[f"{field}_variances"][0, 0]
+            rel[field] = abs(res[f"{field}_means"][i, j] - mean) / max(abs(mean), var**0.5)
+        print(f"  cell ({i}, {j}) alpha_s {SPEED_ALPHAS[i]:.4g} alpha_r "
+              f"{REMODELLING_ALPHAS[j]:.4g}: serial {time.perf_counter() - t0:.3f} s, |batched - "
+              f"serial| of the means / max(|mean|, std): " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in rel.items()) + f" (limit {SWEEP_REL_TOL:g})",
+              flush=True)
+        if not (conv[i, j] and serial["converged"][0, 0]) or max(rel.values()) > SWEEP_REL_TOL:
+            raise AssertionError(f"sweep cell ({i}, {j}) differs from the serial path: {rel}")
+    return counts
+
+
+def _max_rel_diff(a, b, finite=None):
+    """max |a - b| / max |b| over the values finite in ``finite`` (``b``
+    when None)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    ok = np.isfinite(b if finite is None else finite)
+    return float(np.abs(a[ok] - b[ok]).max() / max(np.abs(b[ok]).max(), 1e-30))
+
+
+def analysis_path(movie, dev, card):
+    """Phase 8: the box-method flow, its box-size and blur-size sweeps,
+    Liu-Shen, CLAHE, the adaptive threshold and the area resize on the
+    bench movie (the sweeps on its pair (3, 4)), each on the card and then
+    on the CPU from the same float32 input, NaNs in the same places.
+
+    Where the float32 result is itself only as good as its conditioning
+    (the box method's closed-form 2x2 and 3x3 solves lose ~1e-3 of the
+    largest velocity in float32, and the 3x3 branch's remodelling far
+    more), the card is held to the CPU's own accuracy: both against the
+    float64 run on the CPU, the card's error at most twice the CPU's plus
+    1e-6 of the largest value.  The others are held to a bound on max
+    |card - cpu| / max |cpu|: CLAHE's bins and histograms are exact and
+    its CDF a float32 scan (1.5e-5 of the 65535 range is 1), the threshold
+    compares means of integers, exact in float32, and the resize is two
+    float32 matrix products (1e-6).
+    """
+    from opticalflow_tpu_torch import conduct_optical_flow
+    from opticalflow_tpu_torch.analysis.hyperparams import vary_blursize, vary_boxsize
+    from opticalflow_tpu_torch.flow.liushen import conduct_variational_optical_flow_deprecated
+    from opticalflow_tpu_torch.ops.clahe import apply_clahe
+    from opticalflow_tpu_torch.ops.resize import area_resize_movie
+    from opticalflow_tpu_torch.ops.threshold import apply_adaptive_threshold
+
+    flow, sweep = ("v_x", "v_y", "speed"), ("mean_speeds", "speed_stds", "local_speeds")
+    f = ANALYSIS_PAIR
+    f32 = torch.float32
+    # (name, run on a device in a dtype, outputs compared, None for the
+    # accuracy rule or the bound on max |card - cpu| / max |cpu|)
+    runs = [
+        ("conduct_optical_flow boxsize 15", lambda d, t: conduct_optical_flow(
+            movie, boxsize=15, device=d, dtype=t), flow, None),
+        ("conduct_optical_flow boxsize 15 with remodelling", lambda d, t: conduct_optical_flow(
+            movie, boxsize=15, include_remodelling=True, device=d, dtype=t),
+         flow + ("net_remodelling",), None),
+        (f"vary_boxsize (defaults, pair ({f}, {f + 1}))", lambda d, t: vary_boxsize(
+            movie, frame_index=f, device=d, dtype=t), sweep, None),
+        (f"vary_blursize (defaults, pair ({f}, {f + 1}))", lambda d, t: vary_blursize(
+            movie, frame_index=f, device=d, dtype=t), sweep, None),
+        ("Liu-Shen, 10 sweeps", lambda d, t: conduct_variational_optical_flow_deprecated(
+            movie, use_liu_shen=True, max_iterations=10, device=d, dtype=t), flow, None),
+        ("apply_clahe", lambda d, t: {"out": apply_clahe(movie, device=d).cpu().numpy()},
+         ("out",), 1.5e-5),
+        ("apply_adaptive_threshold", lambda d, t: {"out": apply_adaptive_threshold(
+            movie, device=d).cpu().numpy()}, ("out",), 0.0),
+        ("area_resize_movie to 128x128", lambda d, t: {"out": area_resize_movie(
+            movie, 128, 128, device=d).cpu().numpy()}, ("out",), 1e-6),
+    ]
+    for name, run, keys, bound_rel in runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card = run(dev, f32)  # host arrays: synchronised
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu = run("cpu", f32)
+        cpu_s = time.perf_counter() - t0
+        for key in keys:
+            a, b = np.asarray(on_card[key]), np.asarray(on_cpu[key])
+            if a.shape != b.shape or not np.array_equal(np.isnan(a), np.isnan(b)):
+                raise AssertionError(f"{name} {key}: shapes or NaN positions differ")
+        diffs = {key: _max_rel_diff(on_card[key], on_cpu[key]) for key in keys}
+        line = (f"{name}: card {card_s:.3f} s, CPU {cpu_s:.3f} s; max |card - cpu| / max |cpu| "
+                + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items()))
+        if bound_rel is None:
+            ref = run("cpu", torch.float64)
+            errs = {}
+            for key in keys:
+                finite = np.asarray(ref[key]) + np.asarray(on_card[key]) + np.asarray(on_cpu[key])
+                errs[key] = (_max_rel_diff(on_card[key], ref[key], finite),
+                             _max_rel_diff(on_cpu[key], ref[key], finite))
+            print(line + "; error vs the CPU's float64 run, card / CPU: " + ", ".join(
+                f"{k} {c:.2e} / {p:.2e}" for k, (c, p) in errs.items())
+                + f" (limit 2 x CPU + 1e-6)  [{card}]", flush=True)
+            if any(c > 2.0 * p + 1e-6 for c, p in errs.values()):
+                raise AssertionError(f"{name}: the card is less accurate than the CPU: {errs}")
+        else:
+            print(line + f" (limit {bound_rel:g})  [{card}]", flush=True)
+            if max(diffs.values()) > bound_rel:
+                raise AssertionError(f"{name}: the card differs from the CPU: {diffs}")
+
+
 def oracle_epe(movie, result, k):
     """EPE (px) of pair k against the float64 assembled direct solve, its
     planes built in float64 on the CPU."""
@@ -541,7 +751,12 @@ def main():
     large_runs, oracle = large_grid_path(large, dev, smi)
     # 6. the sharded path
     sharded_runs = sharded_path(large, oracle, movie, dev, smi)
-    runs = {f"{DIM}x{DIM} two-pass": counts, **large_runs, **sharded_runs}
+    # 7. the sweep path
+    sweep_counts = sweep_path(smi)
+    # 8. the other analyses, card against CPU
+    analysis_path(movie, dev, smi)
+    runs = {f"{DIM}x{DIM} two-pass": counts, **large_runs, **sharded_runs,
+            "128x128 sweep (300 solves)": sweep_counts}
 
     for kernel, entry in entries.items():
         label = KERNELS[kernel][0]

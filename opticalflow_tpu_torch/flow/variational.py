@@ -111,6 +111,28 @@ def _make_matvec(matvec_impl: str, prev, speed_alpha, remodelling_alpha, dy_mode
     raise ValueError(f"unknown matvec {matvec_impl!r}")
 
 
+def solver_kwargs(solver: SolverConfig) -> dict:
+    """The keyword arguments of :func:`solve_frame_pair` that a
+    ``SolverConfig`` sets (``atol`` sets none, as in the JAX package)."""
+    return dict(
+        method=solver.method, preconditioner=solver.preconditioner, rtol=solver.rtol,
+        max_iterations=solver.max_iterations,
+        high_precision_reductions=solver.high_precision_reductions,
+        refinement_restarts=solver.refinement_restarts, matvec_impl=solver.matvec,
+        tol_floor=solver.dtype_tol_floor, refinement_rtol=solver.refinement_rtol,
+        refinement_exit_factor=solver.refinement_exit_factor, gmres_restart=solver.gmres_restart,
+    )
+
+
+def _take(tree, idx: torch.Tensor):
+    """The pairs ``idx`` of every tensor in a (nested) tuple of (B, ...)
+    tensors, of the same structure."""
+    if isinstance(tree, torch.Tensor):
+        return tree.index_select(0, idx)
+    parts = [_take(t, idx) for t in tree]
+    return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+
+
 def _norms(x: torch.Tensor) -> torch.Tensor:
     """Per-pair 2-norms (B,) in the working dtype."""
     return torch.sqrt(torch.sum(x * x, dim=(1, 2, 3)))
@@ -186,24 +208,35 @@ def solve_frame_pair(
                    "gmres": functools.partial(krylov.fgmres, restart=gmres_restart)}
         if method not in solvers:
             raise ValueError(f"unknown method {method!r}")
-        if matvec_factory is None:
-            matvec = _make_matvec(matvec_impl, prev, a_s, a_r, dy_mode, pair.coeffs)
-        else:
-            matvec = matvec_factory(prev, a_s, a_r, dy_mode)
+
+        def make_matvec(frames, alpha_s, alpha_r, coeffs):
+            if matvec_factory is None:
+                return _make_matvec(matvec_impl, frames, alpha_s, alpha_r, dy_mode, coeffs)
+            return matvec_factory(frames, alpha_s, alpha_r, dy_mode)
+
+        matvec = make_matvec(prev, a_s, a_r, pair.coeffs)
 
     # 2 damped block-Jacobi sweeps per half-cycle below 500 interior
     # points, 4 at/above.
     mg_sweeps = 2 if max(m, n) < 500 else 4
     with _phase(phase_timer, "mg_setup"):
-        if preconditioner == "block_jacobi":
-            precond = functools.partial(elop.block_jacobi_inverse_apply_interior, pair.coeffs)
-        elif preconditioner == "multigrid":
+        if preconditioner == "multigrid":
             hierarchy = multigrid.setup(matvec, elop.diag_blocks(pair.coeffs), m, n, dtype)
-            precond = functools.partial(multigrid.v_cycle, hierarchy, sweeps=mg_sweeps)
-        elif preconditioner == "none":
-            precond = None
-        else:
+        elif preconditioner not in ("block_jacobi", "none"):
             raise ValueError(f"unknown preconditioner {preconditioner!r}")
+
+    def precond_of(idx=None):
+        """The preconditioner of the pairs ``idx`` (every pair when None)."""
+        if preconditioner == "none":
+            return None
+        coeffs = pair.coeffs if idx is None else _take(pair.coeffs, idx)
+        if preconditioner == "block_jacobi":
+            return functools.partial(elop.block_jacobi_inverse_apply_interior, coeffs)
+        h = hierarchy if idx is None else multigrid.take(
+            hierarchy, idx, make_matvec(prev[idx], a_s[idx], a_r[idx], coeffs))
+        return functools.partial(multigrid.v_cycle, h, sweeps=mg_sweeps)
+
+    precond = precond_of()
 
     solve = functools.partial(
         solvers[method], max_iterations=max_iterations,
@@ -218,7 +251,11 @@ def solve_frame_pair(
     # operator and the same f32 preconditioner.  Per pair, it stops once
     # the df32 true residual is `refinement_exit_factor` below tol, after
     # `refinement_restarts` steps, or when a step gains <0.1%; a correction
-    # that does not reduce the true residual is rejected.
+    # that does not reduce the true residual is rejected.  A step solves
+    # and re-evaluates only its active pairs, with the operator and the
+    # preconditioner of those pairs (sliced from the batch's when the
+    # active set shrinks), so pairs that have stopped cost nothing while
+    # others refine on.
     iterations = res.iterations
     if refinement_restarts > 0:
         with _phase(phase_timer, "refinement"):
@@ -229,7 +266,6 @@ def solve_frame_pair(
             if refinement_exit_factor is None:
                 refinement_exit_factor = 0.1 if max(m, n) < 500 else 0.03
             exit_tol = refinement_exit_factor * tol_main
-            matvec_c = functools.partial(elop.el_matvec_df, dfd)
 
             x_hi = res.x
             x_lo = torch.zeros_like(x_hi)
@@ -237,25 +273,34 @@ def solve_frame_pair(
             r_norm = _norms(r_hi)
             r_prev = torch.full_like(r_norm, float("inf"))
             step = torch.zeros(B, dtype=torch.int32, device=r_norm.device)
+            # the df32 data, matvec and preconditioner of the active pairs
+            subset = (tuple(range(B)), dfd, precond)
             while True:
                 active = ((step < refinement_restarts) & (r_norm > exit_tol)
                           & (r_norm < 0.999 * r_prev))
                 observability.add_count("krylov/host_syncs")
-                if not bool(active.any()):
+                pairs = tuple(torch.nonzero(active.cpu()).flatten().tolist())
+                if not pairs:
                     break
-                res_c = solve(matvec_c, r_hi, x0=torch.zeros_like(r_hi), precond=precond,
+                idx = torch.tensor(pairs, device=x_hi.device)
+                if pairs != subset[0]:
+                    subset = (pairs, _take(dfd, idx), precond_of(idx))
+                _, dfd_a, precond_a = subset
+                res_c = solve(functools.partial(elop.el_matvec_df, dfd_a), r_hi[idx],
+                              x0=torch.zeros_like(r_hi[idx]), precond=precond_a,
                               rtol=refinement_rtol)
-                s_, e = df32.two_sum(x_hi, res_c.x)
-                x_hi_n, x_lo_n = df32.fast_two_sum(s_, x_lo + e)
-                r_hi_n = elop.el_residual_df(dfd, x_hi_n, x_lo_n)
+                s_, e = df32.two_sum(x_hi[idx], res_c.x)
+                x_hi_n, x_lo_n = df32.fast_two_sum(s_, x_lo[idx] + e)
+                r_hi_n = elop.el_residual_df(dfd_a, x_hi_n, x_lo_n)
                 r_new = _norms(r_hi_n)
-                take = (active & (r_new < r_norm))[:, None, None, None]
-                x_hi = torch.where(take, x_hi_n, x_hi)
-                x_lo = torch.where(take, x_lo_n, x_lo)
-                r_hi = torch.where(take, r_hi_n, r_hi)
+                take = r_new < r_norm[idx]
+                t4 = take[:, None, None, None]
+                x_hi = x_hi.index_copy(0, idx, torch.where(t4, x_hi_n, x_hi[idx]))
+                x_lo = x_lo.index_copy(0, idx, torch.where(t4, x_lo_n, x_lo[idx]))
+                r_hi = r_hi.index_copy(0, idx, torch.where(t4, r_hi_n, r_hi[idx]))
                 r_prev = torch.where(active, r_norm, r_prev)
-                r_norm = torch.where(take[:, 0, 0, 0], r_new, r_norm)
-                iterations = torch.where(active, iterations + res_c.iterations, iterations)
+                r_norm = r_norm.index_copy(0, idx, torch.where(take, r_new, r_norm[idx]))
+                iterations = iterations.index_add(0, idx, res_c.iterations.to(iterations.dtype))
                 step = torch.where(active, step + 1, step)
             residual_norm = r_norm
             converged = r_norm <= tol_main
@@ -400,13 +445,7 @@ def variational_optical_flow(
         else:
             all_u, infos = _solve_movie(
                 movie_to_analyse, u_init, speed_alpha, remodelling_alpha, dy_mode, warm_start,
-                method=solver.method, preconditioner=solver.preconditioner, rtol=solver.rtol,
-                max_iterations=solver.max_iterations,
-                high_precision_reductions=solver.high_precision_reductions,
-                matvec_impl=solver.matvec, refinement_restarts=solver.refinement_restarts,
-                tol_floor=solver.dtype_tol_floor, refinement_rtol=solver.refinement_rtol,
-                refinement_exit_factor=solver.refinement_exit_factor,
-                gmres_restart=solver.gmres_restart,
+                **solver_kwargs(solver),
             )
             all_u = all_u.cpu().numpy()
             infos = {key: value.cpu().numpy() for key, value in infos.items()}
@@ -515,13 +554,7 @@ def profile_solve_phases(
         t0 = time.perf_counter()
         u, _ = solve_frame_pair(
             prev[None], cur[None], u0, speed_alpha, remodelling_alpha, dy_mode=dy_mode,
-            method=solver.method, preconditioner=solver.preconditioner, rtol=solver.rtol,
-            max_iterations=solver.max_iterations,
-            high_precision_reductions=solver.high_precision_reductions,
-            refinement_restarts=solver.refinement_restarts, matvec_impl=solver.matvec,
-            tol_floor=solver.dtype_tol_floor, refinement_rtol=solver.refinement_rtol,
-            refinement_exit_factor=solver.refinement_exit_factor,
-            gmres_restart=solver.gmres_restart, phase_timer=phase,
+            phase_timer=phase, **solver_kwargs(solver),
         )
         sync()
         t1 = time.perf_counter()

@@ -24,7 +24,7 @@ import torch
 
 from opticalflow_tpu_torch.core import stencils
 from opticalflow_tpu_torch.core.types import SolverConfig
-from opticalflow_tpu_torch.flow.variational import solve_frame_pair
+from opticalflow_tpu_torch.flow.variational import solve_frame_pair, solver_kwargs
 from opticalflow_tpu_torch.parallel import mesh as mesh_lib
 from opticalflow_tpu_torch.parallel import spmd
 
@@ -70,13 +70,7 @@ def _batched_pair_solve(prev_frames, cur_frames, u_init, speed_alpha, remodellin
     factory = _matvec_factory(solver.matvec, mesh, m, n)
     return solve_frame_pair(
         prev_frames, cur_frames, u_init, speed_alpha, remodelling_alpha, dy_mode=dy_mode,
-        method=solver.method, preconditioner=solver.preconditioner, rtol=solver.rtol,
-        max_iterations=solver.max_iterations,
-        high_precision_reductions=solver.high_precision_reductions,
-        refinement_restarts=solver.refinement_restarts, matvec_impl=solver.matvec,
-        tol_floor=solver.dtype_tol_floor, refinement_rtol=solver.refinement_rtol,
-        refinement_exit_factor=solver.refinement_exit_factor,
-        gmres_restart=solver.gmres_restart, matvec_factory=factory,
+        matvec_factory=factory, **solver_kwargs(solver),
     )
 
 

@@ -24,7 +24,7 @@ product summed over its 27 taps, all in the working dtype.
 from __future__ import annotations
 
 import functools
-from typing import Callable, List, NamedTuple, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -190,11 +190,13 @@ class MGLevel(NamedTuple):
     matvec: Callable
     binv: torch.Tensor  # (B, 3, 3, M, N), planar
     shape: Tuple[int, int]
+    stencil: Optional[torch.Tensor] = None  # (B, 3, 3, 3, 3, M, N) of a probed level
 
 
 class MGHierarchy(NamedTuple):
     levels: Tuple[MGLevel, ...]
     coarse_solve: Callable  # dense exact solve at the bottom
+    coarse_lu: Tuple[torch.Tensor, torch.Tensor]  # its (LU, pivots), one per pair
 
 
 def _planar(blocks: torch.Tensor) -> torch.Tensor:
@@ -233,20 +235,36 @@ def setup(
         matvec = functools.partial(stencil_matvec, S_c)
         blocks = S_c[:, :, :, 1, 1].permute(0, 3, 4, 1, 2)  # (B, mc, nc, 3, 3)
         m, n = mc, nc
-        levels.append(MGLevel(matvec=matvec, binv=_planar(invert_blocks(blocks)), shape=(m, n)))
+        levels.append(MGLevel(matvec=matvec, binv=_planar(invert_blocks(blocks)), shape=(m, n),
+                              stencil=S_c))
 
     # Materialise + LU-factor the coarsest operator (tiny), one per pair.
     n_unk = 3 * m * n
     eye = torch.eye(n_unk, dtype=dtype, device=device).reshape(n_unk, 3, m, n)
     cols = matvec(eye.expand(B, n_unk, 3, m, n).contiguous()).reshape(B, n_unk, n_unk)
     lu, piv = torch.linalg.lu_factor(cols.transpose(-1, -2))
-    mm, nn = m, n
+    return MGHierarchy(levels=tuple(levels), coarse_solve=functools.partial(_lu_solve, lu, piv),
+                       coarse_lu=(lu, piv))
 
-    def coarse_solve(b):
-        x = torch.linalg.lu_solve(lu, piv, b.reshape(b.shape[0], -1, 1))
-        return x.reshape(b.shape[0], 3, mm, nn)
 
-    return MGHierarchy(levels=tuple(levels), coarse_solve=coarse_solve)
+def _lu_solve(lu: torch.Tensor, piv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The coarsest level's dense solve of (B, 3, m, n) right-hand sides."""
+    x = torch.linalg.lu_solve(lu, piv, b.reshape(b.shape[0], -1, 1))
+    return x.reshape(b.shape)
+
+
+def take(h: MGHierarchy, idx: torch.Tensor, fine_matvec: Callable) -> MGHierarchy:
+    """The hierarchy of the pairs ``idx`` of ``h`` alone, on ``fine_matvec``
+    (the fine operator of those pairs): the same levels, sliced, with no
+    probing or factoring."""
+    fine = h.levels[0]
+    levels = [MGLevel(fine_matvec, fine.binv.index_select(0, idx), fine.shape)]
+    for level in h.levels[1:]:
+        S = level.stencil.index_select(0, idx)
+        levels.append(MGLevel(functools.partial(stencil_matvec, S),
+                              level.binv.index_select(0, idx), level.shape, S))
+    lu, piv = (t.index_select(0, idx) for t in h.coarse_lu)
+    return MGHierarchy(tuple(levels), functools.partial(_lu_solve, lu, piv), (lu, piv))
 
 
 def _descend(h: MGHierarchy, lvl: int, b_l: torch.Tensor, n_smooth: int,

@@ -20,6 +20,7 @@ logger = logging.getLogger("opticalflow_tpu_torch")
 
 _SPANS: Dict[str, List[float]] = defaultdict(list)
 _COUNTS: Dict[str, int] = defaultdict(int)
+_VALUES: Dict[str, List[float]] = defaultdict(list)
 
 
 def add_count(name: str, n: int = 1) -> None:
@@ -30,10 +31,21 @@ def counts() -> Dict[str, int]:
     return dict(_COUNTS)
 
 
+def record_value(name: str, value: float) -> None:
+    """Append one reading to a named series (such as the largest iteration
+    count of each chunk of a sweep, ``sweep/chunk_max_iterations``)."""
+    _VALUES[name].append(float(value))
+
+
+def values() -> Dict[str, List[float]]:
+    return {name: list(v) for name, v in _VALUES.items()}
+
+
 def reset() -> None:
-    """Clear all spans and counters."""
+    """Clear all spans, counters and series."""
     _SPANS.clear()
     _COUNTS.clear()
+    _VALUES.clear()
 
 
 def record_span(name: str, seconds: float) -> None:

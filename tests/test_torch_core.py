@@ -63,6 +63,72 @@ def test_stencils_match_jax(dtype, dy_mode):
                                        rtol=rtol, atol=0)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("dy_mode", ["compat", "fixed"])
+def test_neighbour_sums_and_rule_dispatch_match_jax(dtype, dy_mode):
+    frames = np.random.default_rng(4).standard_normal((3, 10, 12)).astype(dtype)
+    t = torch.from_numpy(frames)
+    rtol = 0 if dtype == np.float64 else 1e-6
+    for rule in ("dx", "dy", "dxx", "dyy", "dxy", "dyx", "bar_x", "bar_y", "bar"):
+        got = stencils.interior_derivative(t, rule, dy_mode).numpy()
+        for b in range(frames.shape[0]):
+            want = np.asarray(jst.interior_derivative(jnp.asarray(frames[b]), rule, dy_mode))
+            np.testing.assert_allclose(got[b], want, rtol=rtol, atol=0, err_msg=rule)
+    for ours, theirs in ((stencils.bar_x, jst.bar_x), (stencils.bar_y, jst.bar_y),
+                         (stencils.bar4, jst.bar4)):
+        np.testing.assert_allclose(ours(t).numpy()[1], np.asarray(theirs(jnp.asarray(frames[1]))),
+                                   rtol=rtol, atol=0)
+    np.testing.assert_array_equal(stencils.mirror_edges_movie(t).numpy(),
+                                  np.asarray(jst.mirror_edges_movie(jnp.asarray(frames))))
+    with pytest.raises(ValueError, match="unknown derivative rule"):
+        stencils.interior_derivative(t, "dz")
+
+
+def test_analytic_synthetic_movies_match_jax():
+    """Closed-form textures and fields in float64: numpy and XLA evaluate
+    the same sums of sin, cos and exp, within a few ulps (rtol 1e-12)."""
+    ii, jj = np.arange(20.0)[:, None], np.arange(17.0)[None, :]
+    pairs = [
+        (synth.random_fourier_texture(ii, jj, seed=3),
+         jsynth.random_fourier_texture(jnp.asarray(ii), jnp.asarray(jj), seed=3)),
+        (synth.make_translating_texture_movie(3, 30), jsynth.make_translating_texture_movie(3, 30)),
+        (synth.make_remodelling_ramp_movie(3, 30), jsynth.make_remodelling_ramp_movie(3, 30)),
+        (synth.make_remodelling_ramp_movie(2, 24, background="texture"),
+         jsynth.make_remodelling_ramp_movie(2, 24, background="texture")),
+        (synth.vortex_pair_velocity(32, peak_speed=0.7), jsynth.vortex_pair_velocity(32, peak_speed=0.7)),
+        (synth.make_vortex_pair_movie(2, 32), jsynth.make_vortex_pair_movie(2, 32)),
+    ]
+    for ours, theirs in pairs:
+        ours = ours if isinstance(ours, tuple) else (ours,)
+        theirs = theirs if isinstance(theirs, tuple) else (theirs,)
+        for a, b in zip(ours, theirs):
+            if isinstance(b, float) or b is None:
+                assert a == b
+            else:
+                np.testing.assert_allclose(a, np.asarray(b), rtol=1e-12, atol=1e-13)
+    with pytest.raises(ValueError, match="background"):
+        synth.make_remodelling_ramp_movie(background="stripes")
+
+
+def test_noisy_synthetic_frames_match_jax_in_amplitude():
+    """Noise bits differ (numpy Generator vs PRNGKey); both add uniform
+    noise in [0, 1e-7) to the same noise-free frames."""
+    kw = dict(n_frames=3, dimension=33, width=20.0, sigma=3.0, v_x=0.15, v_y=0.1)
+    clean, _ = synth.make_translating_blob_movie(**kw)
+    ours, dx = synth.make_translating_blob_movie(include_noise=True, **kw)
+    theirs, jdx = jsynth.make_translating_blob_movie(include_noise=True, **kw)
+    assert dx == jdx
+    for noisy in (ours, np.asarray(theirs)):
+        noise = noisy - clean
+        assert noise.min() >= -1e-15 and noise.max() <= 1e-7
+        assert noise.max() > 5e-8
+    again, _ = synth.make_translating_blob_movie(include_noise=True, **kw)
+    np.testing.assert_array_equal(ours, again)  # seeded per frame
+    frame, _ = synth.make_fake_data_frame(1.0, 2.0, include_noise=True, dimension=9,
+                                          rng=np.random.default_rng(5))
+    assert frame.shape == (9, 9) and (frame >= 0).all()
+
+
 def test_synthetic_movie_matches_jax():
     kw = dict(n_frames=3, dimension=33, width=20.0, sigma=3.0, v_x=0.15, v_y=0.1)
     ours, dx = synth.make_translating_blob_movie(**kw)
@@ -97,7 +163,12 @@ def test_interop_carries_solver_config_and_coefficients():
 def test_port_imports_no_jax():
     code = (
         "import sys, opticalflow_tpu_torch, opticalflow_tpu_torch.interop, "
-        "opticalflow_tpu_torch.solve.direct, opticalflow_tpu_torch.core.synth; "
+        "opticalflow_tpu_torch.solve.direct, opticalflow_tpu_torch.core.synth, "
+        "opticalflow_tpu_torch.analysis.sweeps, opticalflow_tpu_torch.analysis.tuning, "
+        "opticalflow_tpu_torch.analysis.hyperparams, opticalflow_tpu_torch.analysis.statistics, "
+        "opticalflow_tpu_torch.flow.liushen, opticalflow_tpu_torch.ops.clahe, "
+        "opticalflow_tpu_torch.ops.resize, opticalflow_tpu_torch.ops.threshold, "
+        "opticalflow_tpu_torch.utils.sweep_chunks; "
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m); "
         "assert not any(m.startswith('opticalflow_tpu.') or m == 'opticalflow_tpu' "
         "for m in sys.modules)"

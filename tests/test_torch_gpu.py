@@ -16,7 +16,9 @@ solve are held to the same bound, against B3's plain version and B1's.
 The solve on the card and the same solve on the CPU converge to the same
 system to within the refinement exit (0.1 x tol), far inside 1e-4 px;
 measured on the CPU the port and the JAX package agree to ~1e-5 px at this
-size.
+size.  A small batched sweep on the card launches B1 with no plain call and
+matches the CPU's sweep to 1e-4 relative; box flow on the card is held to
+the CPU's own float32 accuracy against the CPU's float64 run.
 """
 
 import numpy as np
@@ -255,3 +257,51 @@ def test_hybrid_solve_on_the_card_runs_the_kernel_and_matches_the_cpu(method):
     assert on_card["converged_all"].all() and on_cpu["converged_all"].all()
     epe = np.sqrt((on_card["v_x"] - on_cpu["v_x"]) ** 2 + (on_card["v_y"] - on_cpu["v_y"]) ** 2)
     assert epe[:, 1:-1, 1:-1].max() < 1e-4
+
+
+@pytest.mark.gpu
+def test_sweep_on_the_card_runs_the_kernel_and_matches_the_cpu():
+    """A 2 x 2 grid on a 3-frame 40x40 movie, batched on the card: B1
+    launched, no plain call; every statistic within 1e-4 relative of the
+    same sweep on the CPU (both refine to 0.1 x tol)."""
+    from opticalflow_tpu_torch.analysis.sweeps import vary_regularisation
+
+    dev = _cuda()
+    movie, _ = make_translating_blob_movie(n_frames=3, dimension=40, width=20.0, sigma=3.0,
+                                           v_x=0.15, v_y=0.1)
+    movie = (movie * 100.0).astype(np.float32)
+    grid = ([300.0, 3000.0], [500.0, 5000.0])
+    counts = ck.LAUNCHES, ck.PLAIN_CALLS
+    on_card = vary_regularisation(movie, *grid, device=dev)
+    assert ck.LAUNCHES > counts[0] and ck.PLAIN_CALLS == counts[1]
+    on_cpu = vary_regularisation(movie, *grid, device="cpu")
+    assert on_card["converged"].all() and on_cpu["converged"].all()
+    for key in ("speed_means", "speed_variances", "remodelling_means", "functional"):
+        np.testing.assert_allclose(on_card[key], on_cpu[key], rtol=1e-4, err_msg=key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("include_remodelling", [False, True])
+def test_box_flow_on_the_card_matches_the_cpu(include_remodelling):
+    """float32 box flow on the card and on the CPU, NaNs in the same places.
+    The closed-form solves lose ~1e-3 of the largest velocity in float32
+    (far more for the 3x3 branch's remodelling), so the card is held to the
+    CPU's own accuracy: against the CPU's float64 run, the card's error is
+    at most twice the CPU's plus 1e-6 of the largest value."""
+    from opticalflow_tpu_torch import conduct_optical_flow
+
+    dev = _cuda()
+    movie, delta_x = make_translating_blob_movie(n_frames=4, dimension=64, width=10.0,
+                                                 sigma=2.0, v_x=0.15, v_y=0.1)
+    kw = dict(boxsize=9, delta_x=delta_x, include_remodelling=include_remodelling,
+              smoothing_sigma=1.0)
+    on_card = conduct_optical_flow(movie * 100.0, device=dev, **kw)
+    on_cpu = conduct_optical_flow(movie * 100.0, device="cpu", **kw)
+    ref = conduct_optical_flow(movie * 100.0, device="cpu", dtype=torch.float64, **kw)
+    for key in ("v_x", "v_y", "speed") + (("net_remodelling",) if include_remodelling else ()):
+        np.testing.assert_array_equal(np.isnan(on_card[key]), np.isnan(on_cpu[key]))
+        ok = np.isfinite(on_card[key] + on_cpu[key] + ref[key])
+        scale = np.abs(ref[key][ok]).max()
+        card_err = np.abs(on_card[key][ok] - ref[key][ok]).max() / scale
+        cpu_err = np.abs(on_cpu[key][ok] - ref[key][ok]).max() / scale
+        assert card_err <= 2.0 * cpu_err + 1e-6, (key, card_err, cpu_err)

@@ -219,6 +219,31 @@ def test_entry_points_run_on_the_card_or_raise(movie):
         lambda: variational_optical_flow(torch.from_numpy(pair), **ALPHAS),
         lambda: profile_solve_phases(pair[0], pair[1], reps=1),
     ]
+    # the analysis path's entry points, each for an array and a CPU tensor
+    from opticalflow_tpu_torch import conduct_optical_flow
+    from opticalflow_tpu_torch.analysis import hyperparams, statistics, sweeps, tuning
+    from opticalflow_tpu_torch.flow.liushen import conduct_variational_optical_flow_deprecated
+    from opticalflow_tpu_torch.ops import clahe, resize, threshold
+
+    movie4 = movie[:4].astype(np.float32)
+    entry_points = [
+        lambda m: sweeps.vary_regularisation(m, [500.0], [500.0]),
+        lambda m: sweeps.vary_regularisation(m, [500.0], [500.0], batched=False),
+        lambda m: tuning.optimize_regularisation_parameters(m, shgo_kwargs={"n": 2}),
+        lambda m: tuning.optimize_regularisation_parameters(m, use_direct_solver=False,
+                                                            shgo_kwargs={"n": 2}),
+        lambda m: conduct_optical_flow(m, boxsize=7),
+        lambda m: hyperparams.vary_boxsize(m, boxsizes=[5, 7], frame_index=1),
+        lambda m: hyperparams.vary_blursize(m, blur_sizes=[1.0], frame_index=1),
+        lambda m: statistics.correct_intensity_change(m),
+        lambda m: resize.area_resize_movie(m, 16, 16),
+        lambda m: resize.downsample_movie(m, 0.5),
+        lambda m: threshold.apply_adaptive_threshold(m, window_size=5),
+        lambda m: clahe.apply_clahe(m, tile_number=2),
+        lambda m: conduct_variational_optical_flow_deprecated(m, use_liu_shen=True),
+    ]
+    for entry in entry_points:
+        calls += [lambda e=entry: e(movie4), lambda e=entry: e(torch.from_numpy(movie4))]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
