@@ -55,7 +55,25 @@ Phases, in order; any failure raises and the script exits non-zero:
 8. the other analyses on the bench movie: box flow (with and without
    remodelling), the box-size and blur-size sweeps at their defaults on
    pair (3, 4), Liu-Shen (10 sweeps), CLAHE, the adaptive threshold and the
-   area resize, each on the card and on the CPU, held to a stated bound.
+   area resize, each on the card and on the CPU, held to a stated bound;
+9. the command line (``analysis.drivers``) on files: which host packages
+   this machine has (matplotlib, pandas, cv2, PIL, tifffile; ffmpeg, g++);
+   a 51-frame 512x512 stack (BASELINE config 3) written as an uncompressed
+   16-bit multi-page TIFF of integer counts, and a 13-frame 256x256 PGM
+   folder, read back exactly through ``io.sequences`` on the native loader
+   (built with g++); then ``variational`` on the TIFF with the actin
+   geometry (delta_x 0.0913, delta_t 10) and the CLI's defaults (alpha
+   1000 / 1000, sequential warm start, FGMRES(32) at this size): every pair
+   converged, B1 launched and no plain version, the saved result equal to
+   the returned one, pairs 0-2 equal to a direct ``variational_optical_flow``
+   of frames 0-3 within 1e-6 relative, pair 0 within 1e-3 px of the float64
+   FGMRES oracle; ``sweep`` on frames 0:2 (3 x 3 alphas, 9 solves); ``box``
+   (boxsize 31, sigma 3) under ``--profile``, equal to a direct
+   ``conduct_optical_flow``, with its trace written.  Where matplotlib is
+   installed each subcommand runs whole through ``drivers.main``; where it
+   is not, the drivers' compute-and-save steps run and the plot steps are
+   named as not drawn.  Phase 3 holds B1 against its plain version at the
+   command line's shape (one pair of 510x510, K = 1 and 27) and times it.
 
 The second-to-last line is a JSON object with one entry per kernel: its
 launches in each path's run (``launches_by_path``) and their sum
@@ -67,15 +85,20 @@ the plain version's (``plain_ms``), both per back-to-back call
 (``bound_ms``: the larger of the bytes moved over 3.35 TB/s and the
 operations over 67 TFLOP/s of float32, ``bound_by``), and ``library_ms``
 null (no single PyTorch call computes the EL stencil); B1's entry has the
-same timing keys at the sweep's shape under ``at_sweep_shape``.  The last
-line is
+same timing keys at the sweep's shape under ``at_sweep_shape`` and at the
+command line's under ``at_cli_shape``.  The last line is
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
 
+import importlib.util
 import json
+import os
+import shutil
 import socket
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -102,6 +125,18 @@ FLOPS_PER_PIXEL = 110
 SWEEP_CELLS = ((3, 5), (7, 10), (11, 15))
 SWEEP_REL_TOL = 1e-4
 ANALYSIS_PAIR = 3  # phase 8's sweeps run on pair (3, 4) of the bench movie
+# phase 9: BASELINE config 3's stack (bench.py's stack_512 section) as a
+# TIFF of integer counts, the actin pixel geometry, and the PGM folder
+CLI_FRAMES, CLI_DIM = 51, 512
+CLI_DELTA_X, CLI_DELTA_T = "0.0913", "10"
+PGM_FRAMES, PGM_DIM = 13, 256
+# the bench movie's intensity scale (x100), rounded to integer counts: the
+# CLI's default alpha = 1000 is set for that scale (alpha_s enters the solve
+# as alpha_s / I_max^2); at 12-bit counts (peak 4095) it regularises ~1,700x
+# more weakly, and the float32 solve does not converge on crops of this movie
+PEAK_COUNTS = 100
+CLI_SAME_REL = 1e-6  # pairs 0-2 of the CLI run vs a direct call on frames 0-3
+HOST_PACKAGES = ("matplotlib", "pandas", "cv2", "PIL", "tifffile")
 
 
 def bench_movie():
@@ -124,6 +159,52 @@ def embryo_pair():
                                            width=20.0 * LARGE_DIM / 256, sigma=3.0, v_x=0.15,
                                            v_y=0.1)
     return (movie * 100.0).astype(np.float32)
+
+
+def counts_movie(n_frames, dim):
+    """The bench movie's generator at dim x dim (blob width 20 * dim / 256,
+    sigma 3, v = (0.15, 0.1) px per frame), at the bench's scale (peak 100)
+    and rounded: integer counts as a camera writes them, as uint16."""
+    from opticalflow_tpu_torch.core.synth import make_translating_blob_movie
+
+    movie, _ = make_translating_blob_movie(n_frames=n_frames, dimension=dim,
+                                           width=20.0 * max(dim, 256) / 256, sigma=3.0,
+                                           v_x=0.15, v_y=0.1)
+    return np.round(movie / movie.max() * PEAK_COUNTS).astype(np.uint16)
+
+
+def write_tiff_stack(path, movie):
+    """An uncompressed little-endian 16-bit multi-page TIFF of a (T, X, Y)
+    uint16 movie: per page one IFD (width, height, 16 bits, no
+    compression, black-is-zero, one strip) and then its pixels."""
+    T, H, W = movie.shape
+    page_bytes = H * W * 2
+    # (tag, type, value): type 3 SHORT, 4 LONG; the strip offset is filled in
+    tags = [(256, 4, W), (257, 4, H), (258, 3, 16), (259, 3, 1), (262, 3, 1), (273, 4, None),
+            (277, 3, 1), (278, 4, H), (279, 4, page_bytes)]
+    ifd_bytes = 2 + 12 * len(tags) + 4
+    with open(path, "wb") as f:
+        f.write(b"II" + struct.pack("<HI", 42, 8))
+        offset = 8
+        for k in range(T):
+            data = offset + ifd_bytes
+            next_ifd = data + page_bytes if k < T - 1 else 0
+            f.write(struct.pack("<H", len(tags)))
+            for tag, typ, value in tags:
+                f.write(struct.pack("<HHII", tag, typ, 1, data if value is None else value))
+            f.write(struct.pack("<I", next_ifd))
+            f.write(movie[k].astype("<u2").tobytes())
+            offset = next_ifd
+
+
+def write_pgm_folder(folder, movie):
+    """One binary 16-bit PGM (P5, maxval 65535: big-endian 2-byte samples)
+    per frame."""
+    os.makedirs(folder, exist_ok=True)
+    for k, frame in enumerate(movie):
+        with open(os.path.join(folder, f"frame_{k:03d}.pgm"), "wb") as f:
+            f.write(b"P5\n%d %d\n65535\n" % (frame.shape[1], frame.shape[0]))
+            f.write(frame.astype(">u2").tobytes())
 
 
 def bound(N, K, m, n, extended):
@@ -211,17 +292,18 @@ KERNELS = {
 }
 
 
-def check_kernels(movie, large, dev, card):
+def check_kernels(movie, large, stack_frame, dev, card):
     """B1 and B2 vs their plain versions, and the hybrid matvec vs B1's
-    plain version, at the shapes of phases 4 and 5; returns the JSON entry
-    of each kernel (without the launch counts), timed at the first case."""
+    plain version, at the shapes of phases 4, 5, 7 and 9; returns the JSON
+    entry of each kernel (without the launch counts), timed at the first
+    case, B1 also at the sweep's and the command line's shapes."""
     from opticalflow_tpu_torch.core import stencils
     from opticalflow_tpu_torch.ops import cuda_kernels as ck
     from opticalflow_tpu_torch.ops import elop
     from opticalflow_tpu_torch.utils.cuda_timing import call_ms
 
     frames = {"bench": _normalised(movie, dev), "large": _normalised(large[:1], dev),
-              "sweep": _sweep_operands(dev)}
+              "sweep": _sweep_operands(dev), "cli": _normalised(stack_frame, dev)}
     gen = torch.Generator(dev).manual_seed(1)
     n_sweep = sweep_chunk()
     cases = [  # (name, frames, B, K, m, n, compat, hybrid too)
@@ -235,6 +317,9 @@ def check_kernels(movie, large, dev, card):
         (f"{n_sweep} cells 126x126 (sweep)", "sweep", n_sweep, 1, 126, 126, True, False),
         (f"{n_sweep} cells x 27 probes 126x126 (sweep)", "sweep", n_sweep, 27, 126, 126, True,
          False),
+        # the command line's stack: one pair per solve, 510x510 interior
+        ("1 pair 510x510 (CLI)", "cli", 1, 1, 510, 510, True, False),
+        ("1 pair x 27 probes 510x510 (CLI)", "cli", 1, 27, 510, 510, True, False),
     ]
     entries = {name: {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                       "max_abs_err": 0.0}
@@ -268,10 +353,10 @@ def check_kernels(movie, large, dev, card):
             if index == 0:
                 time_kernel(entries[kernel], KERNELS[kernel][0], kernel_fn, plain_fn,
                             (I, scalars, u, compat), (B, K, m, n, False), card)
-            elif which == "sweep" and kernel == "el_matvec_reduced_fused":
-                # B1 also timed at the sweep path's shape
-                timed = entries[kernel].setdefault("at_sweep_shape", {})[f"N={B} K={K}"] = {}
-                time_kernel(timed, "B1 (sweep)", kernel_fn, plain_fn, (I, scalars, u, compat),
+            elif which in ("sweep", "cli") and kernel == "el_matvec_reduced_fused":
+                # B1 also timed at the sweep path's and the command line's shapes
+                timed = entries[kernel].setdefault(f"at_{which}_shape", {})[f"N={B} K={K}"] = {}
+                time_kernel(timed, f"B1 ({which})", kernel_fn, plain_fn, (I, scalars, u, compat),
                             (B, K, m, n, False), card)
         if hybrid:
             dy_mode = stencils.DY_COMPAT if compat else stencils.DY_FIXED
@@ -669,6 +754,155 @@ def analysis_path(movie, dev, card):
                 raise AssertionError(f"{name}: the card differs from the CPU: {diffs}")
 
 
+def host_packages():
+    """Which host packages import here and which tools are on the PATH."""
+    found = {m: importlib.util.find_spec(m) is not None for m in HOST_PACKAGES}
+    found.update({t: shutil.which(t) is not None for t in ("ffmpeg", "g++")})
+    return found
+
+
+def cli_path(stack, dev, card):
+    """Phase 9: the command line on files.  Returns the counts of the
+    ``variational`` and ``sweep`` runs."""
+    from opticalflow_tpu_torch import FlowResult, SolverConfig, conduct_optical_flow
+    from opticalflow_tpu_torch import variational_optical_flow
+    from opticalflow_tpu_torch.analysis import drivers
+    from opticalflow_tpu_torch.io import native_loader, sequences
+    from opticalflow_tpu_torch.utils.observability import TRACE_FILE, span_statistics
+
+    found = host_packages()
+    print("host packages: " + ", ".join(f"{k} {'yes' if v else 'no'}" for k, v in found.items()),
+          flush=True)
+    whole = found["matplotlib"]  # the one check that decides how the phase runs
+    if not whole:
+        print("matplotlib is not installed: the drivers' compute-and-save steps run; the plot "
+              "steps not drawn: plot_variational (variational_joint.mp4), plot_sweep "
+              "(regularisation_sweep.pdf)", flush=True)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. the input files
+        tiff, pgm = os.path.join(tmp, "stack.tif"), os.path.join(tmp, "pgm")
+        pgm_movie = counts_movie(PGM_FRAMES, PGM_DIM)
+        t0 = time.perf_counter()
+        write_tiff_stack(tiff, stack)
+        write_pgm_folder(pgm, pgm_movie)
+        mb = os.path.getsize(tiff) / 1e6
+        print(f"wrote {tiff}: {stack.shape[0]} x {CLI_DIM}x{CLI_DIM} uint16, {mb:.1f} MB, and "
+              f"{PGM_FRAMES} PGM frames of {PGM_DIM}x{PGM_DIM} in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+        # 2. loading: the native loader, built here with g++
+        t0 = time.perf_counter()
+        if not native_loader.available():
+            raise AssertionError("the native loader did not build (g++) or load")
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native = native_loader.read_tiff_movie_native(tiff)  # raises if not parseable
+        read_s = time.perf_counter() - t0
+        loaded = sequences.read_tiff_movie(tiff)
+        folder = sequences.read_image_sequence_as_movie(pgm)
+        print(f"native loader: built and loaded in {build_s:.3f} s; TIFF read {read_s * 1e3:.3f} "
+              f"ms = {mb / read_s:.1f} MB/s (float32 out); io.sequences equal to what was "
+              f"written: TIFF {np.array_equal(loaded, stack)}, PGM "
+              f"{np.array_equal(folder, pgm_movie)}  [{card}]", flush=True)
+        if not (np.array_equal(native, stack) and np.array_equal(loaded, stack)
+                and np.array_equal(folder, pgm_movie) and loaded.dtype == np.float64):
+            raise AssertionError("the loaded movies differ from the written ones")
+
+        # 3. variational, as a user runs it (no --device: the card)
+        out = os.path.join(tmp, "variational")
+        geometry = ["--delta-x", CLI_DELTA_X, "--delta-t", CLI_DELTA_T]
+        reset_counters()
+        t0 = time.perf_counter()
+        if whole:
+            result = drivers.main(["variational", tiff, "--output-dir", out, *geometry])
+        else:
+            result = drivers.compute_variational(tiff, out, delta_x=float(CLI_DELTA_X),
+                                                 delta_t=float(CLI_DELTA_T))
+        wall = time.perf_counter() - t0
+        counts = read_counters()
+        spans = {name: v["total"] for name, v in span_statistics().items()}
+        n_pairs = stack.shape[0] - 1
+        its, conv = result["iterations"], result["converged_all"]
+        solve_s = spans["variational/solve"]
+        print(f"variational CLI: {n_pairs} pairs {CLI_DIM}x{CLI_DIM} in {wall:.3f} s: load "
+              f"{spans['drivers/load']:.3f}, solve {solve_s:.3f}, save "
+              f"{spans['drivers/save']:.3f}, plot "
+              + (f"{spans['drivers/plot']:.3f}" if whole else "not drawn")
+              + f" s; {n_pairs / solve_s:.3f} pairs/s (solve), {n_pairs / wall:.3f} pairs/s "
+              f"(command); iterations median {int(np.median(its))} max {int(its.max())}, "
+              f"converged {int(conv.sum())}/{conv.size}, B1 launches {counts['B1']} "
+              f"({counts['B1'] / n_pairs:.1f} per pair), plain calls {counts['B1 plain']}, host "
+              f"syncs {counts['host syncs']}  [{card}]", flush=True)
+        if conv.shape != (n_pairs,) or not conv.all():
+            raise AssertionError(f"variational CLI: not every pair converged: {conv.tolist()}")
+        if bypassed(counts, "B1"):
+            raise AssertionError(f"variational CLI bypassed B1: {counts}")
+        saved = FlowResult.load(os.path.join(out, "variational_result.npy"))
+        for key in ("v_x", "v_y", "speed", "remodelling", "iterations", "converged_all"):
+            if not np.array_equal(saved[key], result[key]):
+                raise AssertionError(f"variational CLI: the saved {key} differs")
+        runs[f"{CLI_DIM}x{CLI_DIM} CLI variational ({n_pairs} pairs)"] = counts
+
+        kw = dict(delta_x=float(CLI_DELTA_X), delta_t=float(CLI_DELTA_T), speed_alpha=ALPHA,
+                  remodelling_alpha=ALPHA)
+        direct = variational_optical_flow(loaded[:4], **kw)
+        same = max(_max_rel_diff(result[k][:3], direct[k]) for k in ("v_x", "v_y", "remodelling"))
+        t0 = time.perf_counter()
+        oracle = variational_optical_flow(loaded[:2], dtype=torch.float64, solver=SolverConfig(
+            method="gmres", rtol=1e-10, refinement_restarts=0, matvec="xla"), **kw)
+        oracle_s = time.perf_counter() - t0
+        px = float(CLI_DELTA_T) / float(CLI_DELTA_X)  # physical units -> px per frame
+        d = np.hypot(result["v_x"][0] - oracle["v_x"][0], result["v_y"][0] - oracle["v_y"][0])
+        epe = float(d[1:-1, 1:-1].max()) * px
+        print(f"  pairs 0-2 vs a direct variational_optical_flow of frames 0-3: max rel diff "
+              f"{same:.3e} (limit {CLI_SAME_REL:g}); pair 0 EPE {epe:.3e} px vs the float64 "
+              f"FGMRES oracle (rtol 1e-10, {oracle_s:.3f} s, {int(oracle['iterations'][0])} "
+              f"iterations; limit {EPE_LIMIT_PX:g})", flush=True)
+        if not same <= CLI_SAME_REL:
+            raise AssertionError(f"variational CLI differs from the direct call: {same}")
+        if not (oracle["converged_all"].all() and epe < EPE_LIMIT_PX):
+            raise AssertionError(f"variational CLI pair 0: EPE {epe} px")
+
+        # 4. sweep on frames 0:2, the CLI's default alphas (3 x 3)
+        out = os.path.join(tmp, "sweep")
+        reset_counters()
+        t0 = time.perf_counter()
+        if whole:
+            sweep = drivers.main(["sweep", tiff, "--frames", "0:2", "--output-dir", out])
+        else:
+            sweep = drivers.compute_sweep(tiff, out, frames="0:2")
+        wall = time.perf_counter() - t0
+        counts = read_counters()
+        print(f"sweep CLI: {sweep['converged'].size} solves of {CLI_DIM}x{CLI_DIM} in "
+              f"{wall:.3f} s, converged {int(sweep['converged'].sum())}/"
+              f"{sweep['converged'].size}, B1 launches {counts['B1']}, plain calls "
+              f"{counts['B1 plain']}  [{card}]", flush=True)
+        if bypassed(counts, "B1") or not os.path.exists(
+                os.path.join(out, "regularisation_sweep.npy")):
+            raise AssertionError(f"sweep CLI bypassed B1 or saved nothing: {counts}")
+        runs[f"{CLI_DIM}x{CLI_DIM} CLI sweep (9 solves)"] = counts
+
+        # 5. box under --profile
+        out, prof = os.path.join(tmp, "box"), os.path.join(tmp, "profile")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        box = drivers.main(["--profile", prof, "box", tiff, "--output-dir", out, *geometry])
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = conduct_optical_flow(loaded, boxsize=31, delta_x=float(CLI_DELTA_X),
+                                   delta_t=float(CLI_DELTA_T), smoothing_sigma=3.0)
+        direct_s = time.perf_counter() - t0  # returns host arrays: synchronised
+        equal = all(np.array_equal(box[k], ref[k], equal_nan=True) for k in ("v_x", "v_y", "speed"))
+        trace = os.path.join(prof, TRACE_FILE)
+        print(f"box CLI (boxsize 31, sigma 3) under --profile: {wall:.3f} s (the direct "
+              f"conduct_optical_flow of the loaded movie, unprofiled: {direct_s:.3f} s), equal to "
+              f"it {equal}, trace {os.path.getsize(trace) / 1e6:.1f} MB  [{card}]", flush=True)
+        if not equal:
+            raise AssertionError("box CLI differs from conduct_optical_flow")
+    return runs
+
+
 def oracle_epe(movie, result, k):
     """EPE (px) of pair k against the float64 assembled direct solve, its
     planes built in float64 on the CPU."""
@@ -709,7 +943,8 @@ def main():
     # 3. kernels vs plain versions
     movie = bench_movie()
     large = embryo_pair()
-    entries = check_kernels(movie, large, dev, smi)
+    stack = counts_movie(CLI_FRAMES, CLI_DIM)
+    entries = check_kernels(movie, large, stack[:1].astype(np.float32), dev, smi)
     check_extended_kernel(movie, large, dev, smi, entries["el_matvec_extended"])
 
     # 4. the main path
@@ -755,8 +990,10 @@ def main():
     sweep_counts = sweep_path(smi)
     # 8. the other analyses, card against CPU
     analysis_path(movie, dev, smi)
+    # 9. the command line on files
+    cli_runs = cli_path(stack, dev, smi)
     runs = {f"{DIM}x{DIM} two-pass": counts, **large_runs, **sharded_runs,
-            "128x128 sweep (300 solves)": sweep_counts}
+            "128x128 sweep (300 solves)": sweep_counts, **cli_runs}
 
     for kernel, entry in entries.items():
         label = KERNELS[kernel][0]

@@ -1,10 +1,12 @@
 """Typed data contracts of the port.
 
-A field-for-field copy of ``opticalflow_tpu.core.types`` (``FlowResult``
-and ``SolverConfig``), owned here so that the port never imports the JAX
-package: ``opticalflow_tpu/__init__.py`` loads its flow modules, and
-through them jax, on import.  ``tests/test_torch_core.py`` holds the two
-copies field for field against each other.
+A field-for-field copy of ``opticalflow_tpu.core.types`` (``FlowResult``,
+``SolverConfig`` and the presets ``VariationalConfig`` and
+``BoxFlowConfig``, whose ``run`` takes a ``device``), owned here so that
+the port never imports the JAX package: ``opticalflow_tpu/__init__.py``
+loads its flow modules, and through them jax, on import.
+``tests/test_torch_core.py`` holds the two copies field for field against
+each other.
 """
 
 from __future__ import annotations
@@ -158,3 +160,74 @@ class SolverConfig:
     # (parallel.batch) maps the same names onto a mesh: 'pallas' the tiled
     # kernel B3, 'xla' the tiled plain stencil, 'auto' B1 untiled.
     matvec: str = "auto"  # 'auto' | 'xla' | 'pallas' | 'hybrid' | 'gspmd'
+
+
+@dataclasses.dataclass(frozen=True)
+class VariationalConfig:
+    """Reusable preset of the variational solve; same fields and defaults
+    as the JAX package's.  ``config.run(movie)`` solves with them."""
+
+    delta_x: float = 1.0
+    delta_t: float = 1.0
+    speed_alpha: float = 1.0
+    remodelling_alpha: float = 1000.0
+    smoothing_sigma: Optional[float] = None
+    initial_v_x: float = 0.0
+    initial_v_y: float = 0.0
+    initial_remodelling: float = 0.0
+    # 'sequential' (the reference's warm-start chain), 'cold' or 'two-pass'
+    warm_start: str = "sequential"
+    dy_mode: str = "compat"
+    solver: SolverConfig = dataclasses.field(default_factory=SolverConfig)
+    dtype: Any = None  # None: the solver's default, float32
+
+    def run(self, movie, device=None) -> FlowResult:
+        """The variational solve of ``movie`` with this preset on ``device``
+        (``None``: the CUDA device, which must exist; ``'cpu'``: the CPU)."""
+        from opticalflow_tpu_torch.flow.variational import variational_optical_flow
+
+        return variational_optical_flow(
+            movie,
+            delta_x=self.delta_x,
+            delta_t=self.delta_t,
+            speed_alpha=self.speed_alpha,
+            remodelling_alpha=self.remodelling_alpha,
+            smoothing_sigma=self.smoothing_sigma,
+            initial_v_x=self.initial_v_x,
+            initial_v_y=self.initial_v_y,
+            initial_remodelling=self.initial_remodelling,
+            dy_mode=self.dy_mode,
+            warm_start=self.warm_start,
+            solver=self.solver,
+            dtype=self.dtype,
+            device=device,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class BoxFlowConfig:
+    """Reusable preset of the box-method flow; same fields and defaults as
+    the JAX package's.  ``config.run(movie)`` runs the flow with them."""
+
+    boxsize: int = 15
+    delta_x: float = 1.0
+    delta_t: float = 1.0
+    smoothing_sigma: Optional[float] = None
+    background: Optional[float] = None
+    include_remodelling: bool = False
+
+    def run(self, movie, device=None) -> FlowResult:
+        """The box-method flow of ``movie`` with this preset on ``device``
+        (``None``: the CUDA device, which must exist; ``'cpu'``: the CPU)."""
+        from opticalflow_tpu_torch.flow.boxflow import conduct_optical_flow
+
+        return conduct_optical_flow(
+            movie,
+            boxsize=self.boxsize,
+            delta_x=self.delta_x,
+            delta_t=self.delta_t,
+            smoothing_sigma=self.smoothing_sigma,
+            background=self.background,
+            include_remodelling=self.include_remodelling,
+            device=device,
+        )

@@ -1,8 +1,9 @@
 """The sharded solve: the frame pairs of a movie over a mesh's ``frames``
 axis, each image tiled over its ``(tx, ty)`` axes.
 
-Counterpart of ``opticalflow_tpu.parallel.batch`` (``sharded_box_flow``
-waits for box flow).  Pairs start cold (``warm_start='cold'``), as there:
+Counterpart of ``opticalflow_tpu.parallel.batch``, with
+``sharded_box_flow``: the box-method flow of the whole movie on the mesh's
+device.  Pairs start cold (``warm_start='cold'``), as there:
 the reference's warm-start chain serialises pairs, so the batch trades a
 few Krylov iterations per pair for data parallelism.
 
@@ -121,3 +122,27 @@ def sharded_variational_solve(
     if frames_only:
         return _frames_sharded_solve(*args)
     return _batched_pair_solve(*args)
+
+
+def sharded_box_flow(
+    movie,
+    box_size: int,
+    mesh: Optional[mesh_lib.Mesh] = None,
+    delta_x: float = 1.0,
+    delta_t: float = 1.0,
+    include_remodelling: bool = False,
+    dtype=torch.float32,
+):
+    """Box-method flow of every frame pair of ``movie`` (T, X, Y) on
+    ``mesh``; returns ``(v_x, v_y, speed, remodelling)``, each (T-1, X, Y),
+    on the mesh's device, in physical units, as ``flow.boxflow.box_flow``.
+    ``mesh``: ``None`` is ``make_mesh()`` over the CUDA devices (it raises
+    without one); every position of a mesh runs on one device here, so the
+    whole movie is one batch there, and a mesh over distinct devices raises
+    ``NotImplementedError`` as the solve does."""
+    from opticalflow_tpu_torch.flow.boxflow import box_flow
+
+    if mesh is None:
+        mesh = mesh_lib.make_mesh()
+    movie = torch.as_tensor(movie).to(device=mesh.device(), dtype=dtype)
+    return box_flow(movie, int(box_size), float(delta_x), float(delta_t), include_remodelling)

@@ -10,6 +10,7 @@ any device.  Without CUDA that raises; nothing falls back to the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -21,3 +22,11 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA device: the port runs on the card unless asked for the CPU (device='cpu')")
     return device
+
+
+def to_host(value):
+    """``value`` as a host numpy array: a tensor on any device is copied to
+    the host, anything else goes through ``np.asarray``."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)

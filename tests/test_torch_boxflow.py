@@ -174,3 +174,35 @@ def test_traced_gaussian_matches_jax_and_blur_movie():
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want), rtol=1e-12, atol=1e-10)
         np.testing.assert_allclose(got[k].numpy(), blur_movie(movie, sigma).numpy(), rtol=1e-12,
                                    atol=1e-10)
+
+
+@pytest.mark.parametrize("tiles", [(1, 1), (2, 2)])
+def test_sharded_box_flow_matches_jax_and_box_flow(blob_movie, tiles):
+    """``sharded_box_flow`` on a CPU mesh: the box flow of the whole movie,
+    float64, against the JAX package's on its (1, tx, ty) mesh of virtual
+    CPU devices (rtol 1e-9, as the box flow itself) and equal to
+    ``box_flow`` on the same tensor."""
+    import jax
+
+    from opticalflow_tpu.parallel import batch as jbatch
+    from opticalflow_tpu.parallel import mesh as jmesh
+    from opticalflow_tpu_torch.flow.boxflow import box_flow
+    from opticalflow_tpu_torch.parallel import mesh as pmesh
+    from opticalflow_tpu_torch.parallel.batch import sharded_box_flow
+
+    movie, delta_x = blob_movie
+    tx, ty = tiles
+    cpu = torch.device("cpu")
+    mesh = pmesh.make_mesh([cpu] * (tx * ty), frames=1, tx=tx, ty=ty)
+    ours = sharded_box_flow(movie, 7, mesh=mesh, delta_x=delta_x, dtype=torch.float64)
+    theirs = jbatch.sharded_box_flow(
+        movie, 7, mesh=jmesh.make_mesh(jax.devices()[: tx * ty], frames=1, tx=tx, ty=ty),
+        delta_x=delta_x, dtype=jnp.float64)
+    direct = box_flow(torch.from_numpy(movie), 7, delta_x, 1.0)
+    for got, want, same in zip(ours, theirs, direct):
+        assert got.device == cpu and got.shape == (2, 48, 48)
+        _assert_flow_close(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(got.numpy(), same.numpy())
+    with pytest.raises(NotImplementedError, match="distinct devices"):
+        sharded_box_flow(movie, 7, mesh=pmesh.make_mesh([cpu, torch.device("meta")], frames=1,
+                                                        tx=2, ty=1))

@@ -31,6 +31,44 @@ def test_solver_config_fields_and_defaults_match():
     assert ours == theirs
 
 
+@pytest.mark.parametrize("name", ["VariationalConfig", "BoxFlowConfig"])
+def test_presets_fields_and_defaults_match(name):
+    ours, theirs = getattr(types, name), getattr(jtypes, name)
+    assert [f.name for f in dataclasses.fields(ours)] == [f.name for f in dataclasses.fields(theirs)]
+    for a, b in zip(dataclasses.fields(ours), dataclasses.fields(theirs)):
+        if b.default_factory is not dataclasses.MISSING:  # the solver's SolverConfig
+            assert dataclasses.asdict(a.default_factory()) == dataclasses.asdict(b.default_factory())
+        else:
+            assert a.default == b.default, a.name
+    assert dataclasses.is_dataclass(ours) and ours.__dataclass_params__.frozen
+
+
+def test_presets_run_the_direct_calls_on_the_cpu():
+    """``.run`` is the direct call with the preset's fields, exactly (the
+    same deterministic CPU arithmetic); ``dtype=None`` is float32."""
+    import opticalflow_tpu_torch as port
+
+    movie, dx = synth.make_translating_blob_movie(n_frames=3, dimension=20, width=8.0, sigma=2.0,
+                                                  v_x=0.15, v_y=0.1)
+    movie = movie * 100.0
+    cfg = port.VariationalConfig(delta_x=dx, speed_alpha=500.0, remodelling_alpha=800.0,
+                                 warm_start="two-pass", dy_mode="fixed")
+    got = cfg.run(movie, device="cpu")
+    want = port.variational_optical_flow(movie, delta_x=dx, speed_alpha=500.0,
+                                         remodelling_alpha=800.0, warm_start="two-pass",
+                                         dy_mode="fixed", device="cpu")
+    assert got["v_x"].dtype == np.float32
+    for key in ("v_x", "v_y", "remodelling", "iterations"):
+        np.testing.assert_array_equal(got[key], want[key])
+    box = port.BoxFlowConfig(boxsize=7, delta_x=dx, smoothing_sigma=1.0, include_remodelling=True)
+    got = box.run(movie, device="cpu")
+    want = port.conduct_optical_flow(movie, boxsize=7, delta_x=dx, smoothing_sigma=1.0,
+                                     include_remodelling=True, device="cpu")
+    for key in ("v_x", "v_y", "speed", "net_remodelling"):
+        np.testing.assert_array_equal(got[key], want[key])
+    assert set(port.__all__) == set(__import__("opticalflow_tpu").__all__)
+
+
 def test_flow_result_contract_matches(tmp_path):
     assert types.FlowResult._STANDARD == jtypes.FlowResult._STANDARD
     res = types.FlowResult(v_x=np.ones((1, 4, 4)), v_y=torch.zeros(1, 4, 4), delta_x=0.5,
@@ -160,6 +198,13 @@ def test_interop_carries_solver_config_and_coefficients():
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want), rtol=1e-12, atol=1e-9)
 
 
+_NO_JAX = (
+    "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m); "
+    "assert not any(m.startswith('opticalflow_tpu.') or m == 'opticalflow_tpu' "
+    "for m in sys.modules)"
+)
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys, opticalflow_tpu_torch, opticalflow_tpu_torch.interop, "
@@ -168,12 +213,21 @@ def test_port_imports_no_jax():
         "opticalflow_tpu_torch.analysis.hyperparams, opticalflow_tpu_torch.analysis.statistics, "
         "opticalflow_tpu_torch.flow.liushen, opticalflow_tpu_torch.ops.clahe, "
         "opticalflow_tpu_torch.ops.resize, opticalflow_tpu_torch.ops.threshold, "
-        "opticalflow_tpu_torch.utils.sweep_chunks; "
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m); "
-        "assert not any(m.startswith('opticalflow_tpu.') or m == 'opticalflow_tpu' "
-        "for m in sys.modules)"
+        "opticalflow_tpu_torch.utils.sweep_chunks, opticalflow_tpu_torch.analysis.drivers, "
+        "opticalflow_tpu_torch.analysis.workflows, opticalflow_tpu_torch.analysis.groundtruth, "
+        "opticalflow_tpu_torch.io.sequences, opticalflow_tpu_torch.io.native_loader, "
+        "opticalflow_tpu_torch.io.interop, opticalflow_tpu_torch.utils.cache, "
+        "opticalflow_tpu_torch.flow.farneback, opticalflow_tpu_torch.parallel.batch; "
+        "import importlib.util; "
+        "importlib.util.find_spec('matplotlib') and __import__('opticalflow_tpu_torch.viz.plots'); "
+        + _NO_JAX
     )
     subprocess.run([sys.executable, "-c", code], check=True)
+    # the CLI's help loads no JAX either
+    code = ("import runpy, sys; sys.argv = ['drivers', '--help']\n"
+            "try:\n    runpy.run_module('opticalflow_tpu_torch.analysis.drivers', "
+            "run_name='__main__')\nexcept SystemExit as e:\n    assert e.code == 0\n" + _NO_JAX)
+    subprocess.run([sys.executable, "-c", code], check=True, capture_output=True)
 
 
 def test_spans_and_counters_record():

@@ -305,3 +305,49 @@ def test_box_flow_on_the_card_matches_the_cpu(include_remodelling):
         card_err = np.abs(on_card[key][ok] - ref[key][ok]).max() / scale
         cpu_err = np.abs(on_cpu[key][ok] - ref[key][ok]).max() / scale
         assert card_err <= 2.0 * cpu_err + 1e-6, (key, card_err, cpu_err)
+
+
+def _tiny_tiff(path, n_frames=4, dim=40):
+    """A 16-bit multi-page TIFF of integer counts (the bench movie's scale),
+    written with chip_smoke's writer; returns the movie."""
+    import chip_smoke
+
+    movie, _ = make_translating_blob_movie(n_frames=n_frames, dimension=dim, width=20.0, sigma=3.0,
+                                           v_x=0.15, v_y=0.1)
+    movie = np.round(movie / movie.max() * 100.0).astype(np.uint16)
+    chip_smoke.write_tiff_stack(path, movie)
+    return movie.astype(np.float64)
+
+
+@pytest.mark.gpu
+def test_cli_variational_and_box_on_the_card(tmp_path):
+    """The command line with no --device: the TIFF read by the native
+    loader, ``variational`` launching B1 and no plain version, its saved
+    result within 1e-4 px of the same command on the CPU; ``box`` under
+    --profile equal to a direct ``conduct_optical_flow`` on the card."""
+    from opticalflow_tpu_torch import FlowResult, conduct_optical_flow
+    from opticalflow_tpu_torch.analysis import drivers
+    from opticalflow_tpu_torch.io import native_loader
+
+    _cuda()
+    path = str(tmp_path / "stack.tif")
+    movie = _tiny_tiff(path)
+    np.testing.assert_array_equal(native_loader.read_tiff_movie_native(path), movie)
+    counts = ck.LAUNCHES, ck.PLAIN_CALLS
+    out = str(tmp_path / "card")
+    drivers.compute_variational(path, out)  # the step the CLI runs before plotting
+    assert ck.LAUNCHES > counts[0] and ck.PLAIN_CALLS == counts[1]
+    drivers.compute_variational(path, str(tmp_path / "cpu"), device="cpu")
+    on_card = FlowResult.load(out + "/variational_result.npy")
+    on_cpu = FlowResult.load(str(tmp_path / "cpu" / "variational_result.npy"))
+    assert on_card["converged_all"].all() and on_cpu["converged_all"].all()
+    epe = np.hypot(on_card["v_x"] - on_cpu["v_x"], on_card["v_y"] - on_cpu["v_y"])
+    assert epe[:, 1:-1, 1:-1].max() < 1e-4
+
+    prof = str(tmp_path / "profile")
+    box = drivers.main(["--profile", prof, "box", path, "--output-dir", str(tmp_path / "box"),
+                        "--boxsize", "9"])
+    want = conduct_optical_flow(movie, boxsize=9, smoothing_sigma=3.0)
+    for key in ("v_x", "v_y", "speed"):
+        np.testing.assert_array_equal(box[key], want[key])
+    assert (tmp_path / "profile" / "trace.json").stat().st_size > 0
