@@ -19,7 +19,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    on the bench movie (13 frames of 256x256, 12 pairs, two-pass warm
    start, alpha_s = alpha_r = 1000), with every kernel's counters set to 0
    just before the timed run and read just after, and the flow of pairs 1
-   and 11 held against the float64 assembled direct solve;
+   and 11 held against the float64 assembled direct solve; then the same
+   solve in the reference's TPU mode, float32 Krylov reductions
+   (``high_precision_reductions=False``): 12/12 converged, B1 launched, and
+   pairs 1 and 11 within 1e-3 px of the same oracle;
 5. the 1024x1024 path (the large-grid branch: FGMRES(32), 4-sweep
    multigrid, refinement with FGMRES correction solves): one pair of the
    1024x1024 embryo-scale movie, first solved once in float64 as the
@@ -51,7 +54,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    and three interior cells held against the serial path
    (``batched=False``); phase 3 holds B1 against its plain version at the
    sweep's chunk shape (the default chunk's 150 pairs of 126x126, K = 1
-   and 27) and times it;
+   and 27) and times it (as it times B1 at the bench's 11 pairs of 254x254
+   at K = 27);
 8. the other analyses on the bench movie: box flow (with and without
    remodelling), the box-size and blur-size sweeps at their defaults on
    pair (3, 4), Liu-Shen (10 sweeps), CLAHE, the adaptive threshold and the
@@ -85,8 +89,9 @@ the plain version's (``plain_ms``), both per back-to-back call
 (``bound_ms``: the larger of the bytes moved over 3.35 TB/s and the
 operations over 67 TFLOP/s of float32, ``bound_by``), and ``library_ms``
 null (no single PyTorch call computes the EL stencil); B1's entry has the
-same timing keys at the sweep's shape under ``at_sweep_shape`` and at the
-command line's under ``at_cli_shape``.  The last line is
+same timing keys at the bench's probe shape (K = 27) under
+``at_bench_shape``, at the sweep's shape under ``at_sweep_shape`` and at
+the command line's under ``at_cli_shape``.  The last line is
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
 
@@ -353,8 +358,10 @@ def check_kernels(movie, large, stack_frame, dev, card):
             if index == 0:
                 time_kernel(entries[kernel], KERNELS[kernel][0], kernel_fn, plain_fn,
                             (I, scalars, u, compat), (B, K, m, n, False), card)
-            elif which in ("sweep", "cli") and kernel == "el_matvec_reduced_fused":
-                # B1 also timed at the sweep path's and the command line's shapes
+            elif kernel == "el_matvec_reduced_fused" and (which in ("sweep", "cli")
+                                                          or (which == "bench" and K > 1)):
+                # B1 also timed at the bench's probe shape and at the sweep
+                # path's and the command line's shapes
                 timed = entries[kernel].setdefault(f"at_{which}_shape", {})[f"N={B} K={K}"] = {}
                 time_kernel(timed, f"B1 ({which})", kernel_fn, plain_fn, (I, scalars, u, compat),
                             (B, K, m, n, False), card)
@@ -917,6 +924,33 @@ def oracle_epe(movie, result, k):
     return float(d[1:-1, 1:-1].max())
 
 
+def f32_reductions_run(movie_t, movie, kw, card):
+    """Phase 4's second run: the bench solve in the reference's TPU mode,
+    float32 Krylov reductions (``high_precision_reductions=False``): every
+    pair converged, B1 launched, pairs 1 and 11 within the EPE limit of
+    the float64 direct solve."""
+    from opticalflow_tpu_torch import SolverConfig, variational_optical_flow
+
+    reset_counters()
+    t0 = time.perf_counter()
+    result = variational_optical_flow(
+        movie_t, solver=SolverConfig(high_precision_reductions=False), **kw)
+    wall = time.perf_counter() - t0
+    counts = read_counters()
+    conv = np.asarray(result["converged_all"])
+    epes = {k: oracle_epe(movie, result, k) for k in ORACLE_PAIRS}
+    print(f"main path, float32 reductions: {conv.size} pairs in {wall:.3f} s, iterations "
+          f"{np.asarray(result['iterations']).tolist()}, converged {int(conv.sum())}/{conv.size}, "
+          f"counts {counts}, EPE " + ", ".join(f"pair {k} {e:.3e}" for k, e in epes.items())
+          + f" px vs the f64 direct solve (limit {EPE_LIMIT_PX:g})  [{card}]", flush=True)
+    if conv.shape != (N_FRAMES - 1,) or not conv.all():
+        raise AssertionError(f"float32 reductions: not every pair converged: {conv.tolist()}")
+    if bypassed(counts, "B1"):
+        raise AssertionError(f"float32 reductions: the run bypassed B1: {counts}")
+    if not max(epes.values()) < EPE_LIMIT_PX:
+        raise AssertionError(f"float32 reductions: EPE {epes} px")
+
+
 def main():
     # 1. the device
     if not torch.cuda.is_available():
@@ -981,6 +1015,7 @@ def main():
               flush=True)
         if not e < EPE_LIMIT_PX:
             raise AssertionError(f"pair {k}: EPE {e} px")
+    f32_reductions_run(movie_t, movie, kw, smi)
 
     # 5. the large-grid path
     large_runs, oracle = large_grid_path(large, dev, smi)

@@ -14,17 +14,21 @@
 //   compat                      dy rule of the whole call (1: dIdy = dIdx)
 //
 // What bounds it: memory.  One application moves 7 planes per field stack
-// (I plus 3 field planes in, 3 out: 28 bytes a pixel) for ~150 flops a
-// pixel, far below the card's flop/byte balance.  The design therefore
-// reads every input element from device memory once: a 32x8 block stages
-// the I tile and the three u tiles, each with a one-pixel halo, in shared
-// memory (coalesced row loads), and every thread then reads its 3x3
-// neighbourhoods from there.  The 11 coefficient planes never touch device
-// memory: they are rebuilt in registers from the staged I tile.  The three
-// kernels differ only in where the halo tile comes from (the staging rule
-// below), which is decided while staging, so the stencil itself has no
-// selects.  One thread per output pixel, no atomics: results are
-// deterministic.
+// (I plus 3 field planes in, 3 out: 28 bytes a pixel) for ~110 flops a
+// pixel, far below the card's flop/byte balance.  The per-pixel arithmetic
+// (the coefficient rebuild and the 9-point / 3-field stencil) is the pair
+// of inline functions `coefficients` and `apply` below, which all three
+// kernels call; the 11 coefficient planes never touch device memory.
+//
+// B2 and B3 share one kernel here: a 32x8 block stages the I tile and the
+// three u tiles, each with a one-pixel halo, in shared memory (coalesced
+// row loads), and every thread then reads its 3x3 neighbourhoods from
+// there, one thread per output pixel.  They differ only in where the halo
+// tile comes from (the staging rule below), decided while staging, so the
+// stencil itself has no selects.  B1 has its own kernel (el_matvec.cu):
+// register-blocked strips, a ring of asynchronously staged tiles, and the
+// coefficients built once per tile for all K field stacks.  No atomics:
+// results are deterministic.
 
 #pragma once
 
@@ -37,25 +41,76 @@ constexpr int kTileY = 8;   // rows
 constexpr int kHaloW = kTileX + 2;
 constexpr int kHaloH = kTileY + 2;
 
-// Interior index of extended index e in [-1, len]; -1 when e lies beyond
-// the one-pixel ring (only read by threads whose output is discarded).
-__device__ __forceinline__ int fold(int e, int len, bool* mirrored) {
-  *mirrored = (e == -1) || (e == len);
-  if (e == -1) return 1;
-  if (e == len) return len - 2;
-  return (e >= 0 && e < len) ? e : -1;
+// The coefficients of one output pixel, rebuilt from I as at
+// pallas_kernels.py:445-463 (and :711-729): the 11 planes and the two
+// derivatives the remodelling row reads.
+struct Coeffs {
+  float dIdx, dIdy, diag_x, diag_y, cross, adv_xm, adv_xp, adv_ym, adv_yp, gx, gy, quart, half_i;
+};
+
+// s[a][b] = I(i + a, j + b) of the full frame for output pixel (i, j).
+__device__ __forceinline__ Coeffs coefficients(const float (&s)[3][3], float a_s, int compat) {
+  Coeffs c;
+  const float Ic = s[1][1];
+  c.dIdx = 0.5f * (s[2][1] - s[0][1]);
+  c.dIdy = compat ? c.dIdx : 0.5f * (s[1][2] - s[1][0]);
+  const float dIdxx = s[2][1] + s[0][1] - 2.f * Ic;
+  const float dIdyy = s[1][2] + s[1][0] - 2.f * Ic;
+  const float dIdxy = 0.25f * (s[2][2] - s[2][0] - s[0][2] + s[0][0]);
+
+  c.diag_x = Ic * (dIdxx - 2.f * Ic) - 4.f * a_s;
+  c.diag_y = Ic * (dIdyy - 2.f * Ic) - 4.f * a_s;
+  c.cross = Ic * dIdxy;
+  c.adv_xm = Ic * (-c.dIdx + Ic) + a_s;
+  c.adv_xp = Ic * (c.dIdx + Ic) + a_s;
+  c.adv_ym = Ic * (-c.dIdy + Ic) + a_s;
+  c.adv_yp = Ic * (c.dIdy + Ic) + a_s;
+  c.gx = Ic * c.dIdx * 0.5f;
+  c.gy = Ic * c.dIdy * 0.5f;
+  c.quart = Ic * Ic * 0.25f;
+  c.half_i = Ic * 0.5f;
+  return c;
 }
 
-// Staging rule of the field's halo tile; each is its own `if constexpr`
-// branch, so each kernel compiles only its own.
-//   kFold: the reduced system's mirror extension (elop.extend_interior:
-//     row -1 reads row 1, row m reads row m-2, columns likewise, value
-//     doubled where both indices were mirrored);
+// The stencil, term for term as at pallas_kernels.py:527-556 (and
+// :751-780).  ux/uy/g[a][b] = field at interior (i + a - 1, j + b - 1),
+// as the caller's staging rule extends it; y = (y_ux, y_uy, y_g).
+__device__ __forceinline__ void apply(const Coeffs& c, float a_s, float a_r,
+                                      const float (&ux)[3][3], const float (&uy)[3][3],
+                                      const float (&g)[3][3], float (&y)[3]) {
+  y[0] = c.diag_x * ux[1][1]
+      + c.cross * uy[1][1]
+      + c.adv_xm * ux[0][1]
+      + c.adv_xp * ux[2][1]
+      + a_s * (ux[1][0] + ux[1][2])
+      + c.gx * (uy[1][2] - uy[1][0])
+      + c.gy * (uy[2][1] - uy[0][1])
+      + c.quart * (uy[0][0] + uy[2][2] - uy[0][2] - uy[2][0])
+      + c.half_i * (g[0][1] - g[2][1]);
+  y[1] = c.diag_y * uy[1][1]
+      + c.cross * ux[1][1]
+      + c.adv_ym * uy[1][0]
+      + c.adv_yp * uy[1][2]
+      + a_s * (uy[0][1] + uy[2][1])
+      + c.gy * (ux[2][1] - ux[0][1])
+      + c.gx * (ux[1][2] - ux[1][0])
+      + c.quart * (ux[0][0] + ux[2][2] - ux[0][2] - ux[2][0])
+      + c.half_i * (g[1][0] - g[1][2]);
+  y[2] = (-1.f - 4.f * a_r) * g[1][1]
+      + c.dIdx * ux[1][1]
+      + c.dIdy * uy[1][1]
+      + a_r * (g[0][1] + g[2][1] + g[1][0] + g[1][2])
+      + c.half_i * (ux[2][1] - ux[0][1])
+      + c.half_i * (uy[1][2] - uy[1][0]);
+}
+
+// Staging rule of the field's halo tile in the B2 / B3 kernel; each is its
+// own `if constexpr` branch, so each kernel compiles only its own.
 //   kZero: the plain stencil, field reads outside [0, m) x [0, n) are zero;
 //   kExtended: u is already extended, (m+2, n+2) per plane; tile element
 //     (r, c) is u_ext[i0 + r][j0 + c], with no folds and no select beyond
 //     the ragged-edge bound.
-enum Staging : int { kFold = 0, kZero = 1, kExtended = 2 };
+enum Staging : int { kZero = 1, kExtended = 2 };
 
 template <int kRule>
 __global__ void __launch_bounds__(kTileX * kTileY)
@@ -87,20 +142,11 @@ el_matvec_kernel(const float* __restrict__ I, const float* __restrict__ scalars,
     const int c = idx - r * kHaloW;
     const int fi = i0 + r, fj = j0 + c;
     sI[r][c] = (fi < ni && fj < nj) ? Ib[static_cast<size_t>(fi) * nj + fj] : 0.f;
-    // (the offset is formed even where it is not read: a select on it costs
-    // B1 ~6% of its device time at K = 1)
-    if constexpr (kRule == kFold) {
-      bool mr, mc;
-      const int si = fold(i0 - 1 + r, m, &mr);
-      const int sj = fold(j0 - 1 + c, n, &mc);
-      const bool ok = si >= 0 && sj >= 0;
-      const float f = (mr && mc) ? 2.f : 1.f;
-      const size_t off = static_cast<size_t>(si) * n + sj;
-#pragma unroll
-      for (int q = 0; q < 3; ++q) sU[q][r][c] = ok ? f * ub[q * plane + off] : 0.f;
-    } else if constexpr (kRule == kZero) {
+    if constexpr (kRule == kZero) {
       const int si = i0 - 1 + r, sj = j0 - 1 + c;
       const bool ok = si >= 0 && si < m && sj >= 0 && sj < n;
+      // (the offset is formed even where it is not read: a select on it
+      // costs ~6% of the device time at K = 1)
       const size_t off = static_cast<size_t>(si) * n + sj;
 #pragma unroll
       for (int q = 0; q < 3; ++q) sU[q][r][c] = ok ? ub[q * plane + off] : 0.f;
@@ -117,74 +163,29 @@ el_matvec_kernel(const float* __restrict__ I, const float* __restrict__ scalars,
   const int i = i0 + ty, j = j0 + tx;
   if (i >= m || j >= n) return;
 
+  float s[3][3], ux[3][3], uy[3][3], g[3][3], y[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+#pragma unroll
+    for (int bb = 0; bb < 3; ++bb) {
+      s[a][bb] = sI[ty + a][tx + bb];
+      ux[a][bb] = sU[0][ty + a][tx + bb];
+      uy[a][bb] = sU[1][ty + a][tx + bb];
+      g[a][bb] = sU[2][ty + a][tx + bb];
+    }
+  }
   const float a_s = scalars[2 * b];
   const float a_r = scalars[2 * b + 1];
-
-  // I(i + a, j + bb) of the full frame for output pixel (i, j), a, bb in 0..2
-#define SI(a, bb) sI[ty + (a)][tx + (bb)]
-  // field q at interior (i + a - 1, j + bb - 1), as staged
-#define UX(a, bb) sU[0][ty + (a)][tx + (bb)]
-#define UY(a, bb) sU[1][ty + (a)][tx + (bb)]
-#define G(a, bb) sU[2][ty + (a)][tx + (bb)]
-
-  // coefficients, as rebuilt at pallas_kernels.py:445-463 (and :711-729)
-  const float Ic = SI(1, 1);
-  const float dIdx = 0.5f * (SI(2, 1) - SI(0, 1));
-  const float dIdy = compat ? dIdx : 0.5f * (SI(1, 2) - SI(1, 0));
-  const float dIdxx = SI(2, 1) + SI(0, 1) - 2.f * Ic;
-  const float dIdyy = SI(1, 2) + SI(1, 0) - 2.f * Ic;
-  const float dIdxy = 0.25f * (SI(2, 2) - SI(2, 0) - SI(0, 2) + SI(0, 0));
-
-  const float diag_x = Ic * (dIdxx - 2.f * Ic) - 4.f * a_s;
-  const float diag_y = Ic * (dIdyy - 2.f * Ic) - 4.f * a_s;
-  const float cross = Ic * dIdxy;
-  const float adv_xm = Ic * (-dIdx + Ic) + a_s;
-  const float adv_xp = Ic * (dIdx + Ic) + a_s;
-  const float adv_ym = Ic * (-dIdy + Ic) + a_s;
-  const float adv_yp = Ic * (dIdy + Ic) + a_s;
-  const float gx = Ic * dIdx * 0.5f;
-  const float gy = Ic * dIdy * 0.5f;
-  const float quart = Ic * Ic * 0.25f;
-  const float half_i = Ic * 0.5f;
-
-  // the stencil, term for term as at pallas_kernels.py:527-556 (and :751-780)
-  const float y_ux = diag_x * UX(1, 1)
-      + cross * UY(1, 1)
-      + adv_xm * UX(0, 1)
-      + adv_xp * UX(2, 1)
-      + a_s * (UX(1, 0) + UX(1, 2))
-      + gx * (UY(1, 2) - UY(1, 0))
-      + gy * (UY(2, 1) - UY(0, 1))
-      + quart * (UY(0, 0) + UY(2, 2) - UY(0, 2) - UY(2, 0))
-      + half_i * (G(0, 1) - G(2, 1));
-  const float y_uy = diag_y * UY(1, 1)
-      + cross * UX(1, 1)
-      + adv_ym * UY(1, 0)
-      + adv_yp * UY(1, 2)
-      + a_s * (UY(0, 1) + UY(2, 1))
-      + gy * (UX(2, 1) - UX(0, 1))
-      + gx * (UX(1, 2) - UX(1, 0))
-      + quart * (UX(0, 0) + UX(2, 2) - UX(0, 2) - UX(2, 0))
-      + half_i * (G(1, 0) - G(1, 2));
-  const float y_g = (-1.f - 4.f * a_r) * G(1, 1)
-      + dIdx * UX(1, 1)
-      + dIdy * UY(1, 1)
-      + a_r * (G(0, 1) + G(2, 1) + G(1, 0) + G(1, 2))
-      + half_i * (UX(2, 1) - UX(0, 1))
-      + half_i * (UY(1, 2) - UY(1, 0));
-#undef SI
-#undef UX
-#undef UY
-#undef G
+  apply(coefficients(s, a_s, compat), a_s, a_r, ux, uy, g, y);
 
   const size_t o = static_cast<size_t>(i) * n + j;
-  ob[o] = y_ux;
-  ob[plane + o] = y_uy;
-  ob[2 * plane + o] = y_g;
+  ob[o] = y[0];
+  ob[plane + o] = y[1];
+  ob[2 * plane + o] = y[2];
 }
 
 // Launches on `stream` and returns cudaGetLastError() of the launch; the
-// caller checks shapes (m, n >= 3 for kFold, B * K <= 65535) and contiguity.
+// caller checks shapes (B * K <= 65535: the grid's z limit) and contiguity.
 template <int kRule>
 int launch(const float* I, const float* scalars, const float* u, float* out, int B, int K,
            int m, int n, int compat, void* stream) {

@@ -5,9 +5,12 @@ Counterpart of ``opticalflow_tpu.ops.blur``: the sampled Gaussian that
 separable correlation with edge-replicate padding over a ``(T, X, Y)``
 stack.  Each pass is a sum of shifted slices times the taps: plain float
 multiply-adds, so no convolution library and no TF32 path is involved.
-``blur_movie`` blurs a tensor where it lies; ``blur_to_host`` takes an
-array or tensor, blurs it on a device and returns a host array (for the
-host-side modules: interop, Farneback, the drivers).
+``blur_movie`` takes an array or a tensor: a tensor is blurred where it
+lies, an array on ``device`` (``None``: the card, by the entry points'
+device rule); ``blur_frame`` blurs one ``(X, Y)`` frame the same way;
+``blur_to_host`` takes an array or tensor, blurs it on a device and
+returns a host array (for the host-side modules: interop, Farneback, the
+drivers).
 """
 
 from __future__ import annotations
@@ -38,13 +41,26 @@ def _correlate_last_axis(movie: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
     return out
 
 
-def blur_movie(movie: torch.Tensor, smoothing_sigma: float, truncate: float = 4.0) -> torch.Tensor:
-    """Gaussian-blur every frame of a ``(T, X, Y)`` movie."""
+def blur_movie(movie, smoothing_sigma: float, truncate: float = 4.0,
+               device=None) -> torch.Tensor:
+    """Gaussian-blur every frame of a ``(T, X, Y)`` movie, an array or a
+    tensor.  A tensor stays where it lies; an array goes to ``device``
+    (``None``: the CUDA device, which must exist; ``'cpu'``: the CPU).
+    Integer movies are blurred in float32, as in the JAX package."""
+    if not isinstance(movie, torch.Tensor):
+        movie = torch.as_tensor(np.asarray(movie)).to(resolve_device(device))
     if not movie.is_floating_point():
         movie = movie.to(torch.float32)
     taps = gaussian_kernel_1d(smoothing_sigma, truncate)
     out = _correlate_last_axis(movie.transpose(-1, -2), taps).transpose(-1, -2)
     return _correlate_last_axis(out, taps).contiguous()
+
+
+def blur_frame(frame, smoothing_sigma: float, truncate: float = 4.0,
+               device=None) -> torch.Tensor:
+    """Gaussian-blur one ``(X, Y)`` frame, an array or a tensor, as
+    :func:`blur_movie` does."""
+    return blur_movie(frame[None, :, :], smoothing_sigma, truncate, device)[0]
 
 
 def blur_to_host(movie, smoothing_sigma: float, device=None) -> np.ndarray:

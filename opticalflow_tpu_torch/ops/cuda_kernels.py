@@ -69,6 +69,10 @@ ENTRY_POINTS = {"el_matvec.cu": "el_matvec_reduced_fused",
                 "el_matvec_plain.cu": "el_matvec_plain_core",
                 "el_matvec_ext.cu": "el_matvec_extended"}
 
+# kernels whose grid puts B * K on its z axis (B1's grid is one-dimensional
+# and has no such limit)
+GRID_Z_LIMITED = ("el_matvec_plain_core", "el_matvec_extended")
+
 _FUNCTIONS: Dict[str, ctypes._CFuncPtr] = {}
 
 
@@ -171,8 +175,8 @@ def _launch(entry: str, I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor,
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if B * K > 65535:
-        raise ValueError(f"B*K = {B * K} exceeds the grid's z limit 65535")
+    if entry in GRID_Z_LIMITED and B * K > 65535:
+        raise ValueError(f"B*K = {B * K} exceeds {entry}'s grid z limit 65535")
     fn = (library or load_library())[entry]
     out = u.new_empty(u.shape[:-2] + (m, n))
     with torch.cuda.device(u.device):

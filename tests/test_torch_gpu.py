@@ -52,16 +52,27 @@ def _frames(m, n, batch):
     return np.ascontiguousarray(movie[:, : m + 2, : n + 2], dtype=np.float32)
 
 
+# (pairs, (m, n), K) of kernel B1's cases: the bench's 254², the 1024²
+# pair's 1022², ragged, the 3x3 minimum; the command line's 1 x 510² (K = 1
+# and the probes' 27) and the sweep's chunk of 150 x 126²; widths n = 0, 1
+# and 3 mod 4 (the staging's alignment; every path's n is 2 mod 4); an
+# interior shorter than a thread's 4-row strip; one tile holding both
+# mirror folds of both axes (32x16 at K = 1, 32x32 at K > 1); and B * K
+# above 65,535 (B1's grid has no z limit).
+B1_CASES = [(3, (254, 254), 1), (3, (254, 254), 27), (3, (1022, 1022), 1), (3, (61, 190), 1),
+            (3, (3, 3), 5), (3, (33, 9), 2), (1, (510, 510), 1), (1, (510, 510), 27),
+            (150, (126, 126), 1), (3, (40, 64), 1), (3, (37, 65), 3), (3, (45, 67), 1),
+            (3, (3, 70), 1), (2, (14, 30), 1), (2, (20, 25), 3), (3, (3, 3), 21846)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,K", [((254, 254), 1), ((254, 254), 27), ((1022, 1022), 1),
-                                     ((61, 190), 1), ((3, 3), 5), ((33, 9), 2)])
+@pytest.mark.parametrize("B,shape,K", B1_CASES)
 @pytest.mark.parametrize("compat", [True, False])
-def test_cuda_kernel_matches_plain_version(shape, K, compat):
+def test_cuda_kernel_matches_plain_version(B, shape, K, compat):
     dev = _cuda()
     m, n = shape
-    B = len(ALPHAS)
     frames = torch.from_numpy(_frames(m, n, B)).to(dev)
-    scalars = torch.tensor(ALPHAS, device=dev)
+    scalars = torch.tensor((ALPHAS * B)[:B], device=dev)
     u = torch.randn(B, K, 3, m, n, device=dev, generator=torch.Generator(dev).manual_seed(0))
     launches = ck.LAUNCHES
     y = ck.el_matvec_reduced_fused(frames, scalars, u, compat)
