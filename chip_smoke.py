@@ -35,13 +35,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    at the shapes the tiled matvec gives it (the 1022x1022 interior as one
    tile and as 2 x 2 tiles of 511x511, K = 1 and 27; 11 x 254x254; a
    ragged 2 x 61x190), the tiled matvec against B1's plain version on the
-   (1, 1, 1) and (1, 2, 2) meshes of the one card, timed beside B1; then
-   the 1024x1024 pair solved by ``sharded_variational_solve`` with
-   ``matvec='pallas'`` on both meshes (counters set to 0 just before each
-   and read just after: B3 launched, B1, B2 and every plain version not),
-   each converged and held to EPE < 1e-3 px against phase 5's oracle; and
-   ``distributed_variational_solve`` in a world of one (a gloo process
-   group on 127.0.0.1, the solve on the card) on the bench movie, equal
+   (1, 1, 1) and (1, 2, 2) meshes of the one card, timed beside B1, and
+   on (1, 2, 2) the exchange route (the route of tiles on distinct GPUs,
+   forced on the one card) bitwise against the windows route, each timed
+   per application; then the 1024x1024 pair solved by
+   ``sharded_variational_solve`` with ``matvec='pallas'`` on both meshes
+   (counters set to 0 just before each and read just after: B3 launched,
+   B1, B2 and every plain version not), each converged and held to EPE <
+   1e-3 px against phase 5's oracle; then the distinct-device routes on
+   the one card: the bench movie's 12 pairs on a (2, 1, 1) mesh over the
+   card twice, in serial blocks and in two worker threads, in turns (B1
+   launched; bitwise equal; both wall times), and the 1024x1024 pair by
+   the exchange route on (1, 2, 2) (bitwise equal to the windows route, 4
+   B3 launches for each of its one, the seam copies counted); then, on a
+   machine with two or more GPUs, the (2, 1, 1) frames mesh and a (1, 2,
+   1) tile mesh over cuda:0 and cuda:1, each bitwise equal to one card
+   (on one GPU a line says so); and ``distributed_variational_solve`` in
+   a world of one (a gloo process group on 127.0.0.1, the solve on the
+   card) on the bench movie, equal
    to ``sharded_variational_solve``'s result within 1e-6 px, then again
    with the default solver (``'auto'``: B1 launched, no other kernel and
    no plain version);
@@ -387,7 +398,9 @@ def check_kernels(movie, large, stack_frame, dev, card):
 def check_extended_kernel(movie, large, dev, card, entry):
     """B3 vs its plain version at the shapes the tiled matvec gives it, and
     the tiled matvec vs B1's plain version on the (1, 1, 1) and (1, 2, 2)
-    meshes at 1022x1022, timed beside B1; fills B3's JSON entry (timed at
+    meshes at 1022x1022, timed beside B1, and on (1, 2, 2) its exchange
+    route (the distinct-device route, forced on the one card) bitwise
+    against its windows route, both timed; fills B3's JSON entry (timed at
     the first case)."""
     from opticalflow_tpu_torch.ops import cuda_kernels as ck
     from opticalflow_tpu_torch.ops import elop
@@ -450,6 +463,18 @@ def check_extended_kernel(movie, large, dev, card, entry):
                   flush=True)
             if max(rel) > REL_TOL:
                 raise AssertionError(f"tiled matvec (1, {tx}, {ty}) K={K} disagrees with B1")
+            if tx * ty > 1:  # the distinct-device route, forced on the one card
+                mv_x = spmd.make_sharded_kernel_matvec(mesh, I, scalars[:, 0], scalars[:, 1],
+                                                       "compat", as_distinct=True)
+                same = torch.equal(mv_x(u), mv(u))
+                x_ms = call_ms(lambda: mv_x(u), reps)
+                print(f"tiled matvec, mesh (1, {tx}, {ty}), 1022x1022 K={K}, one application "
+                      f"(CUDA events, ms per call): windows route (one B3 launch) {t_ms:.4f}, "
+                      f"exchange route ({tx * ty} B3 launches, seams handed between tiles) "
+                      f"{x_ms:.4f}; outputs bitwise equal {same}  [{card}]", flush=True)
+                if not same:
+                    raise AssertionError(f"exchange route (1, {tx}, {ty}) K={K} differs from the "
+                                         "windows route")
 
 
 def reset_counters():
@@ -529,10 +554,126 @@ def large_grid_path(large, dev, card):
     return runs, oracle
 
 
+def _solve_to_host(movie, mesh, as_distinct=False, solver=None, **alphas):
+    """``sharded_variational_solve`` with its results on the host: (wall s,
+    solutions, iterations, converged, counts), the counters set to 0 just
+    before and read just after.  ``as_distinct``: the same solve through
+    the private ``batch._mesh_solve`` with the distinct-device routes
+    forced on a mesh that names one card several times."""
+    from opticalflow_tpu_torch import SolverConfig
+    from opticalflow_tpu_torch.parallel.batch import _mesh_solve, sharded_variational_solve
+
+    reset_counters()
+    t0 = time.perf_counter()
+    if as_distinct:
+        m = torch.as_tensor(movie).to(device=mesh.device(), dtype=torch.float32)
+        all_u, infos = _mesh_solve(m[:-1], m[1:], m.new_zeros((3,) + tuple(m.shape[1:])),
+                                   alphas["speed_alpha"], alphas["remodelling_alpha"],
+                                   solver or SolverConfig(), "compat", mesh, as_distinct=True)
+    else:
+        all_u, infos = sharded_variational_solve(movie, mesh=mesh, solver=solver, **alphas)
+    all_u = all_u.cpu().numpy()  # synchronised
+    wall = time.perf_counter() - t0
+    return (wall, all_u, infos["iterations"].cpu().numpy(), infos["converged"].cpu().numpy(),
+            read_counters())
+
+
+def distinct_device_runs(large, oracle, movie, windows, dev, card):
+    """Phase 6's distinct-device routes: on the one card, forced
+    (``as_distinct=True``) on meshes that name it several times, each held
+    bitwise against the one-device route; then over two GPUs where the
+    machine has them.  ``windows``: the 1024x1024 (1, 2, 2) run of the
+    windows route (solutions, iterations, counts).  Returns the counts of
+    each run."""
+    from opticalflow_tpu_torch import SolverConfig
+    from opticalflow_tpu_torch.parallel import spmd
+    from opticalflow_tpu_torch.parallel.mesh import make_mesh
+
+    runs = {}
+    # 1. the frames workers on one card: the bench movie's 12 pairs, cold,
+    # on a (2, 1, 1) mesh over the card twice, in serial blocks and in two
+    # worker threads, in turns
+    frames_mesh = make_mesh([dev] * 2, frames=2, tx=1, ty=1)
+    kw = dict(speed_alpha=ALPHA, remodelling_alpha=ALPHA)
+    first, walls = {}, {}
+    for label in ("serial blocks", "workers", "workers", "serial blocks"):
+        wall, u, its, conv, counts = _solve_to_host(movie, frames_mesh,
+                                                    as_distinct=label == "workers", **kw)
+        walls.setdefault(label, []).append(wall)
+        first.setdefault(label, (u, its, counts))
+        print(f"{DIM}x{DIM} bench movie, mesh (2, 1, 1) over the card twice, {label}: "
+              f"{wall:.3f} s, iterations {its.tolist()}, converged {int(conv.sum())}/{conv.size}, "
+              f"counts {counts}  [{card}]", flush=True)
+        if not conv.all() or bypassed(counts, "B1"):
+            raise AssertionError(f"frames {label}: not converged or bypassed B1: {counts}")
+    (u_s, its_s, counts_s), (u_w, its_w, counts_w) = first["serial blocks"], first["workers"]
+    equal = np.array_equal(u_s, u_w) and np.array_equal(its_s, its_w)
+    print(f"frames workers vs serial blocks, one card: wall s workers {walls['workers']}, serial "
+          f"{walls['serial blocks']}; B1 launches workers {counts_w['B1']}, serial "
+          f"{counts_s['B1']}; solutions and iterations bitwise equal (rtol 0, atol 0) {equal}  "
+          f"[{card}]", flush=True)
+    if not equal or counts_w["B1"] != counts_s["B1"]:
+        raise AssertionError("frames workers differ from serial blocks")
+    runs[f"{DIM}x{DIM} frames (2, 1, 1) serial blocks"] = counts_s
+    runs[f"{DIM}x{DIM} frames (2, 1, 1) workers"] = counts_w
+
+    # 2. the exchange route on one card: the 1024x1024 pair on (1, 2, 2)
+    tile_mesh = make_mesh([dev] * 4, frames=1, tx=2, ty=2)
+    pallas = dict(kw, solver=SolverConfig(matvec="pallas"))
+    spmd.SEAM_COPIES = 0
+    wall, u_x, its_x, conv, counts = _solve_to_host(large, tile_mesh, as_distinct=True, **pallas)
+    seams = spmd.SEAM_COPIES
+    d = np.sqrt((u_x[:, 0] - oracle["v_x"]) ** 2 + (u_x[:, 1] - oracle["v_y"]) ** 2)
+    e = float(d[0, 1:-1, 1:-1].max())
+    u_w, its_w, counts_w = windows
+    equal = np.array_equal(u_x, u_w) and its_x.tolist() == its_w
+    print(f"1024 sharded_variational_solve matvec='pallas' mesh (1, 2, 2), exchange route on "
+          f"one card: {wall:.3f} s, iterations {its_x.tolist()}, converged {conv.tolist()}, "
+          f"counts {counts}, B3 launches {counts['B3']} (windows route {counts_w['B3']}, x4 = "
+          f"{4 * counts_w['B3']}), seam copies {seams}, EPE {e:.3e} px vs the float64 oracle "
+          f"(limit {EPE_LIMIT_PX:g}), bitwise equal to the windows route {equal}  [{card}]",
+          flush=True)
+    if not conv.all() or bypassed(counts, "B3") or counts["B3"] != 4 * counts_w["B3"]:
+        raise AssertionError(f"exchange route: not converged or not 4 B3 launches per "
+                             f"application: {counts}")
+    if not equal or not e < EPE_LIMIT_PX:
+        raise AssertionError(f"exchange route differs from the windows route or EPE {e} px")
+    runs[f"{LARGE_DIM}x{LARGE_DIM} sharded (1, 2, 2) exchange"] = counts
+
+    # 3. the same over distinct GPUs, where the machine has two
+    n_gpus = torch.cuda.device_count()
+    if n_gpus < 2:
+        print(f"distinct-device runs: they need two or more GPUs; this machine has {n_gpus}",
+              flush=True)
+        return runs
+    two = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    _, u, its, conv, counts = _solve_to_host(movie, make_mesh(two, frames=2, tx=1, ty=1), **kw)
+    equal = np.array_equal(u, u_s) and np.array_equal(its, its_s)
+    print(f"{DIM}x{DIM} bench movie, mesh (2, 1, 1) over cuda:0 and cuda:1: iterations "
+          f"{its.tolist()}, counts {counts}, bitwise equal to one card's serial blocks {equal}  "
+          f"[{card}]", flush=True)
+    if not equal or not conv.all():
+        raise AssertionError("frames over two GPUs differ from one card")
+    runs[f"{DIM}x{DIM} frames (2, 1, 1) two GPUs"] = counts
+    _, u_1, its_1, _, _ = _solve_to_host(large, make_mesh([dev] * 2, frames=1, tx=2, ty=1),
+                                         **pallas)
+    _, u, its, conv, counts = _solve_to_host(large, make_mesh(two, frames=1, tx=2, ty=1),
+                                             **pallas)
+    equal = np.array_equal(u, u_1) and np.array_equal(its, its_1)
+    print(f"1024 mesh (1, 2, 1) over cuda:0 and cuda:1 ('pallas'): iterations {its.tolist()}, "
+          f"counts {counts}, bitwise equal to one card's windows route {equal}  [{card}]",
+          flush=True)
+    if not equal or not conv.all() or bypassed(counts, "B3"):
+        raise AssertionError("tiles over two GPUs differ from one card or bypassed B3")
+    runs[f"{LARGE_DIM}x{LARGE_DIM} sharded (1, 2, 1) two GPUs"] = counts
+    return runs
+
+
 def sharded_path(large, oracle, movie, dev, card):
     """Phase 6's runs: the 1024x1024 pair through ``sharded_variational_solve``
     (``matvec='pallas'``) on the (1, 1, 1) and (1, 2, 2) meshes of the card,
-    then ``distributed_variational_solve`` in a world of one on the bench
+    then the distinct-device routes (:func:`distinct_device_runs`), then
+    ``distributed_variational_solve`` in a world of one on the bench
     movie, with ``'pallas'`` and with the default solver; returns the counts
     of each run."""
     import torch.distributed as dist
@@ -568,6 +709,8 @@ def sharded_path(large, oracle, movie, dev, card):
         if not e < EPE_LIMIT_PX:
             raise AssertionError(f"sharded 1024 mesh {shape}: EPE {e} px")
         runs[f"{LARGE_DIM}x{LARGE_DIM} sharded {shape}"] = counts
+        windows = (all_u, infos["iterations"].tolist(), counts)
+    runs.update(distinct_device_runs(large, oracle, movie, windows, dev, card))
 
     with socket.socket() as sock:  # a free port for the process group
         sock.bind(("127.0.0.1", 0))

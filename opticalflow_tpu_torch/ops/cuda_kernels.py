@@ -26,7 +26,11 @@ On CPU tensors a wrapper runs its plain version; on CUDA tensors it checks
 device, dtype, shape and contiguity, launches its kernel on the current
 stream, and raises on any failure — there is no fallback.  It adds one to
 its launch counter per launch, and a plain version to its own counter per
-call.  :func:`load_library` builds each source of ``ENTRY_POINTS`` with
+call, under a lock, so the counts stay exact when several threads solve
+at once (the sharded solve's workers, parallel.batch).  The first launch
+of each kernel on each device, and of each block shape (K = 1 and K > 1),
+holds a lock too: B1 sets its shared-memory limit and caches its resident
+blocks per device on that launch.  :func:`load_library` builds each source of ``ENTRY_POINTS`` with
 ``nvcc`` on first use, one process per source, all started together, into
 ``_build/`` beside the package (plain C entry points loaded with ctypes),
 keyed by a hash of every source and header under ``csrc/`` and the flags.
@@ -40,6 +44,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, Optional
 
@@ -74,6 +79,16 @@ ENTRY_POINTS = {"el_matvec.cu": "el_matvec_reduced_fused",
 GRID_Z_LIMITED = ("el_matvec_plain_core", "el_matvec_extended")
 
 _FUNCTIONS: Dict[str, ctypes._CFuncPtr] = {}
+_LOAD_LOCK = threading.Lock()  # one build, however many threads load at once
+_COUNT_LOCK = threading.Lock()
+_FIRST_USE_LOCK = threading.Lock()
+_LAUNCHED = set()  # (entry point, device index, K > 1) launched once already
+
+
+def _count(name: str) -> None:
+    """Add one to the module counter ``name``."""
+    with _COUNT_LOCK:
+        globals()[name] += 1
 
 
 def _nvcc() -> str:
@@ -131,8 +146,9 @@ def build(source_dir: str = SOURCE_DIR) -> Dict[str, ctypes._CFuncPtr]:
 def load_library() -> Dict[str, ctypes._CFuncPtr]:
     """Build (once per version of the sources) and load every kernel of
     ``ENTRY_POINTS``; returns the C entry points by name."""
-    if not _FUNCTIONS:
-        _FUNCTIONS.update(build())
+    with _LOAD_LOCK:
+        if not _FUNCTIONS:
+            _FUNCTIONS.update(build())
     return _FUNCTIONS
 
 
@@ -179,10 +195,18 @@ def _launch(entry: str, I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor,
         raise ValueError(f"B*K = {B * K} exceeds {entry}'s grid z limit 65535")
     fn = (library or load_library())[entry]
     out = u.new_empty(u.shape[:-2] + (m, n))
+    first_use = (id(fn), u.device.index, K > 1)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        rc = fn(I.data_ptr(), scalars.data_ptr(), u.data_ptr(), out.data_ptr(),
+        args = (I.data_ptr(), scalars.data_ptr(), u.data_ptr(), out.data_ptr(),
                 B, K, m, n, int(bool(compat)), stream)
+        if first_use in _LAUNCHED:
+            rc = fn(*args)
+        else:
+            with _FIRST_USE_LOCK:
+                rc = fn(*args)
+                if rc == 0:
+                    _LAUNCHED.add(first_use)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {rc}")
     return out
@@ -202,9 +226,8 @@ def el_matvec_reduced_fused_ref(I: torch.Tensor, scalars: torch.Tensor, u: torch
     """Plain PyTorch version of the fused kernel: ``I`` (B, m+2, n+2),
     ``scalars`` (B, 2) = per-pair (alpha_s, alpha_r), ``u`` (B, 3, m, n) or
     (B, K, 3, m, n); returns y = A_reduced u of the same shape."""
-    global PLAIN_CALLS
     _check_shapes(I, scalars, u)
-    PLAIN_CALLS += 1
+    _count("PLAIN_CALLS")
     return elop.interior_apply(_coefficients(I, scalars, u, compat), elop.extend_interior(u))
 
 
@@ -214,11 +237,10 @@ def el_matvec_reduced_fused(I: torch.Tensor, scalars: torch.Tensor, u: torch.Ten
     arguments as :func:`el_matvec_reduced_fused_ref`.  CUDA tensors go
     through the hand-written kernel, CPU tensors through the plain
     version."""
-    global LAUNCHES
     if _on_cpu(I, scalars, u):
         return el_matvec_reduced_fused_ref(I, scalars, u, compat)
     out = _launch("el_matvec_reduced_fused", I, scalars, u, compat)
-    LAUNCHES += 1
+    _count("LAUNCHES")
     return out
 
 
@@ -228,9 +250,8 @@ def el_matvec_plain_core_ref(I: torch.Tensor, scalars: torch.Tensor, u: torch.Te
     with coefficients rebuilt from ``I``, applied to ``u`` extended by
     zeros (every output pixel, the boundary ring included); arguments as
     :func:`el_matvec_reduced_fused_ref`."""
-    global CORE_PLAIN_CALLS
     _check_shapes(I, scalars, u)
-    CORE_PLAIN_CALLS += 1
+    _count("CORE_PLAIN_CALLS")
     return elop.interior_apply(_coefficients(I, scalars, u, compat), F.pad(u, (1, 1, 1, 1)))
 
 
@@ -239,11 +260,10 @@ def el_matvec_plain_core(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor
     """The plain stencil of :func:`el_matvec_plain_core_ref`; CUDA tensors
     go through the hand-written kernel, CPU tensors through the plain
     version."""
-    global CORE_LAUNCHES
     if _on_cpu(I, scalars, u):
         return el_matvec_plain_core_ref(I, scalars, u, compat)
     out = _launch("el_matvec_plain_core", I, scalars, u, compat)
-    CORE_LAUNCHES += 1
+    _count("CORE_LAUNCHES")
     return out
 
 
@@ -263,9 +283,8 @@ def el_matvec_extended_ref(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tens
     (N, m+2, n+2) blocks of the true frame with their halo, ``scalars``
     (N, 2), ``u`` (N, 3, m+2, n+2) or (N, K, 3, m+2, n+2) field blocks
     already extended; returns the EL stencil (N, [K,] 3, m, n)."""
-    global EXT_PLAIN_CALLS
     _check_shapes(I, scalars, u, extended=True)
-    EXT_PLAIN_CALLS += 1
+    _count("EXT_PLAIN_CALLS")
     return elop.interior_apply(_coefficients(I, scalars, u, compat), u)
 
 
@@ -274,9 +293,8 @@ def el_matvec_extended(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor,
     """The stencil on pre-extended blocks of :func:`el_matvec_extended_ref`;
     CUDA tensors go through the hand-written kernel, CPU tensors through
     the plain version."""
-    global EXT_LAUNCHES
     if _on_cpu(I, scalars, u):
         return el_matvec_extended_ref(I, scalars, u, compat)
     out = _launch("el_matvec_extended", I, scalars, u, compat, extended=True)
-    EXT_LAUNCHES += 1
+    _count("EXT_LAUNCHES")
     return out

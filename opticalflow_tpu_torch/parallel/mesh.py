@@ -3,14 +3,16 @@
 Counterpart of ``opticalflow_tpu.parallel.mesh``: the same
 ``('frames', 'tx', 'ty')`` axes (frame-pair parallelism, then 2-D spatial
 tiling of each image) and the same factoring rules and errors.  A
-:class:`Mesh` is a (frames, tx, ty) array of ``torch.device`` objects and
-its ``shape`` dict; it places nothing by itself.
+:class:`Mesh` is a (frames, tx, ty) array of ``torch.device`` objects of one
+type and its ``shape`` dict; it places nothing by itself.
 
-This slice of the port runs every mesh position on one device: the tiles
-of a (1, tx, ty) mesh are solved together by one launch of the tiled
-matvec (parallel.spmd), and the frames positions one after another.  A
-mesh over distinct devices raises ``NotImplementedError`` in the solve; the
-halo exchange between GPUs is the work of a later multi-GPU slice.
+A mesh may name one device several times (``[torch.device('cuda', 0)] * 4``)
+or give positions devices of their own.  The sharded solve
+(parallel.batch) reads where each position lies: frames row ``f`` solves
+its pairs on its home device ``mesh.device(f)``, the device of position
+(f, 0, 0), with a worker thread per row when the mesh is
+:attr:`Mesh.distinct`; a row whose tiles lie on distinct devices
+exchanges one-pixel seams between them (parallel.spmd).
 """
 
 from __future__ import annotations
@@ -26,24 +28,46 @@ AXES = ("frames", "tx", "ty")
 
 
 class Mesh:
-    """A (frames, tx, ty) array of devices with its axis sizes."""
+    """A (frames, tx, ty) array of devices of one type with its axis sizes;
+    a mesh that mixes device types raises ``ValueError``."""
 
     def __init__(self, devices: np.ndarray):
         if devices.ndim != len(AXES):
             raise ValueError(f"a mesh is a {len(AXES)}-d array of devices, got {devices.shape}")
-        self.devices = devices
+        types = sorted({d.type for d in devices.flat})
+        if len(types) != 1:
+            raise ValueError(f"a mesh holds devices of one type, got {types}")
+        resolved = np.empty(devices.size, dtype=object)
+        resolved[:] = [_resolve_index(d) for d in devices.flat]
+        self.devices = resolved.reshape(devices.shape)
         self.shape: Dict[str, int] = dict(zip(AXES, devices.shape))
 
-    def device(self) -> torch.device:
-        """The one device every position of this mesh runs on; raises for a
-        mesh over distinct devices."""
-        distinct = {str(d) for d in self.devices.flat}
-        if len(distinct) != 1:
-            raise NotImplementedError(
-                f"a mesh over distinct devices ({sorted(distinct)}) needs the halo exchange "
-                "between GPUs, which is a later multi-GPU slice of the port; this slice runs "
-                "every mesh position on one device")
-        return self.devices.flat[0]
+    def device(self, frames: int = 0, tx: int = 0, ty: int = 0) -> torch.device:
+        """The device of position (frames, tx, ty): ``device(f)`` is frames
+        row f's home device, where its pairs, Krylov vectors and V-cycle
+        live, and ``device()`` the mesh's first device, where the sharded
+        solve gathers its results."""
+        return self.devices[frames, tx, ty]
+
+    @property
+    def distinct(self) -> bool:
+        """Whether the positions lie on more than one device (by type and
+        index: ``cuda`` and ``cuda:0`` are one device when 0 is current)."""
+        return len(set(self.devices.flat)) > 1
+
+    def row(self, frames: int) -> "Mesh":
+        """The (1, tx, ty) mesh of frames row ``frames``."""
+        return Mesh(self.devices[frames : frames + 1])
+
+
+def _resolve_index(device: torch.device) -> torch.device:
+    """``device`` with its index made explicit: a CUDA device without one is
+    the current device, and ``cpu:0`` is ``cpu``."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    if device.type == "cpu" and device.index == 0:
+        return torch.device("cpu")
+    return device
 
 
 def _factor(n: int) -> Tuple[int, int, int]:

@@ -15,6 +15,7 @@ from the device once per iteration; those reads are counted as
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -50,17 +51,31 @@ def _bc(s: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return s.reshape((-1,) + (1,) * (like.dim() - 1))
 
 
+_PRECISION_LOCK = threading.Lock()
+_PRECISION = {"depth": 0, "saved": None}  # blocks inside full_f32_precision, the flags before
+
+
 @contextlib.contextmanager
 def full_f32_precision():
     """No TF32 in matrix products or convolutions for the duration (the
-    counterpart of the JAX package's HIGHEST matmul precision)."""
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    counterpart of the JAX package's HIGHEST matmul precision).  The flags
+    are the process's: the first of several blocks open at once, in any
+    thread, clears them and the last to close restores them."""
+    with _PRECISION_LOCK:
+        if _PRECISION["depth"] == 0:
+            _PRECISION["saved"] = (torch.backends.cuda.matmul.allow_tf32,
+                                   torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _PRECISION["depth"] += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+        with _PRECISION_LOCK:
+            _PRECISION["depth"] -= 1
+            if _PRECISION["depth"] == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _PRECISION["saved"]
 
 
 def _host(t: torch.Tensor) -> np.ndarray:

@@ -9,6 +9,9 @@ host time: around CUDA work it measures the enqueue unless the block ends
 in a synchronisation (the variational solve's span does, since it copies
 its results to the host).  Counters count host events, such as the
 device-to-host reads of the Krylov loop condition (``krylov/host_syncs``).
+Spans, counters and series are recorded under a lock, so several threads
+may record at once (the sharded solve's workers): a span keeps its own
+start time, so spans opened in different threads need no common nesting.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
+import threading
 import time
 from collections import defaultdict
 from typing import Dict, Iterator, List, Tuple
@@ -27,24 +31,29 @@ logger = logging.getLogger("opticalflow_tpu_torch")
 _SPANS: Dict[str, List[float]] = defaultdict(list)
 _COUNTS: Dict[str, int] = defaultdict(int)
 _VALUES: Dict[str, List[float]] = defaultdict(list)
+_LOCK = threading.Lock()
 
 
 def add_count(name: str, n: int = 1) -> None:
-    _COUNTS[name] += n
+    with _LOCK:
+        _COUNTS[name] += n
 
 
 def counts() -> Dict[str, int]:
-    return dict(_COUNTS)
+    with _LOCK:
+        return dict(_COUNTS)
 
 
 def record_value(name: str, value: float) -> None:
     """Append one reading to a named series (such as the largest iteration
     count of each chunk of a sweep, ``sweep/chunk_max_iterations``)."""
-    _VALUES[name].append(float(value))
+    with _LOCK:
+        _VALUES[name].append(float(value))
 
 
 def values() -> Dict[str, List[float]]:
-    return {name: list(v) for name, v in _VALUES.items()}
+    with _LOCK:
+        return {name: list(v) for name, v in _VALUES.items()}
 
 
 def format_elapsed_time(time_difference: float) -> Tuple[int, int, int]:
@@ -58,19 +67,22 @@ def format_elapsed_time(time_difference: float) -> Tuple[int, int, int]:
 
 def reset_spans() -> None:
     """Clear the spans (counters and series stay)."""
-    _SPANS.clear()
+    with _LOCK:
+        _SPANS.clear()
 
 
 def reset() -> None:
     """Clear all spans, counters and series."""
-    _SPANS.clear()
-    _COUNTS.clear()
-    _VALUES.clear()
+    with _LOCK:
+        _SPANS.clear()
+        _COUNTS.clear()
+        _VALUES.clear()
 
 
 def record_span(name: str, seconds: float) -> None:
     """Record an externally measured duration as a span."""
-    _SPANS[name].append(float(seconds))
+    with _LOCK:
+        _SPANS[name].append(float(seconds))
 
 
 @contextlib.contextmanager
@@ -81,17 +93,19 @@ def span(name: str, log: bool = False) -> Iterator[None]:
         yield
     finally:
         elapsed = time.perf_counter() - start
-        _SPANS[name].append(elapsed)
+        record_span(name, elapsed)
         if log:
             logger.info("%s: %.3fs", name, elapsed)
 
 
 def span_statistics() -> Dict[str, Dict[str, float]]:
     """count / total / mean / min / max of every recorded span."""
+    with _LOCK:
+        spans = {name: list(v) for name, v in _SPANS.items()}
     return {
         name: {"count": len(v), "total": sum(v), "mean": sum(v) / len(v),
                "min": min(v), "max": max(v)}
-        for name, v in _SPANS.items()
+        for name, v in spans.items()
     }
 
 
@@ -133,7 +147,7 @@ class Timer:
 
     def __exit__(self, *exc):
         self.elapsed = time.perf_counter() - self.start
-        _SPANS[self.name].append(self.elapsed)
+        record_span(self.name, self.elapsed)
         return False
 
     def report(self) -> str:

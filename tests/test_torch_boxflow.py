@@ -203,6 +203,12 @@ def test_sharded_box_flow_matches_jax_and_box_flow(blob_movie, tiles):
         assert got.device == cpu and got.shape == (2, 48, 48)
         _assert_flow_close(got.numpy(), np.asarray(want))
         np.testing.assert_array_equal(got.numpy(), same.numpy())
-    with pytest.raises(NotImplementedError, match="distinct devices"):
-        sharded_box_flow(movie, 7, mesh=pmesh.make_mesh([cpu, torch.device("meta")], frames=1,
-                                                        tx=2, ty=1))
+    # over distinct devices (two CPU indices) the pairs split over them and
+    # the result is the same; devices of two types make no mesh
+    split = sharded_box_flow(movie, 7, mesh=pmesh.make_mesh(
+        [torch.device("cpu", 0), torch.device("cpu", 1)], frames=2), delta_x=delta_x,
+        dtype=torch.float64)
+    for got, same in zip(split, direct):
+        np.testing.assert_array_equal(got.numpy(), same.numpy())
+    with pytest.raises(ValueError, match="one type"):
+        pmesh.make_mesh([cpu, torch.device("meta")], frames=1, tx=2, ty=1)

@@ -1,14 +1,17 @@
-"""The 512x512 pair of the large-grid branch: the port's and the JAX
-package's float32 default solves against one float64 oracle, on the CPU.
+"""The 512x512 and 1024x1024 pairs of the large-grid branch: the port's
+and the JAX package's float32 default solves against one float64 oracle,
+on the CPU.
 
-Marked slow, so tier-1 leaves it out (about two minutes on 8 CPU cores).
-Run it alone and read the numbers it prints:
+Marked slow, so tier-1 leaves it out (512: about two minutes on 8 CPU
+cores; 1024: see PERF.md section 7).  Run it alone and read the numbers it
+prints:
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_epe_512.py -m slow -s -q
 
-The pair is ``bench.py::make_movie(2, 512)``: blob width 40, sigma 3, v =
-(0.15, 0.1), x100 and rounded through float32, so both dtypes see the same
-frames.  max(m, n) = 510 >= 500 puts both solves in the FGMRES branch with
+The pair is ``bench.py::make_movie(2, dim)``, the 1024 one the embryo-scale
+pair of tests/test_accuracy_1024.py: blob width 20 * dim / 256, sigma 3,
+v = (0.15, 0.1), x100 and rounded through float32, so both dtypes see the
+same frames.  max(m, n) >= 500 puts both solves in the FGMRES branch with
 the 0.03 x tol refinement exit.  The oracle is the port's float64 FGMRES
 at rtol 1e-10 with no refinement (the oracle of
 tests/test_accuracy_1024.py).  Both float32 solves must converge and land
@@ -28,7 +31,6 @@ from opticalflow_tpu.flow.variational import solve_frame_pair as jax_solve_frame
 from opticalflow_tpu_torch.core.synth import make_translating_blob_movie
 from opticalflow_tpu_torch.flow.variational import solve_frame_pair
 
-DIM = 512
 ALPHA = 1000.0
 
 
@@ -38,14 +40,15 @@ def _epe(u, u_ref):
 
 
 @pytest.mark.slow
-def test_512_epe_of_port_and_jax_against_the_f64_oracle():
-    movie, _ = make_translating_blob_movie(n_frames=2, dimension=DIM,
-                                           width=20.0 * DIM / 256, sigma=3.0, v_x=0.15, v_y=0.1)
+@pytest.mark.parametrize("dim", [512, 1024])
+def test_epe_of_port_and_jax_against_the_f64_oracle(dim):
+    movie, _ = make_translating_blob_movie(n_frames=2, dimension=dim,
+                                           width=20.0 * dim / 256, sigma=3.0, v_x=0.15, v_y=0.1)
     movie = np.asarray(movie * 100.0, np.float32)
 
     t0 = time.perf_counter()
     f64 = torch.from_numpy(movie.astype(np.float64))
-    u_ref, info_ref = solve_frame_pair(f64[:1], f64[1:], torch.zeros(3, DIM, DIM, dtype=f64.dtype),
+    u_ref, info_ref = solve_frame_pair(f64[:1], f64[1:], torch.zeros(3, dim, dim, dtype=f64.dtype),
                                        ALPHA, ALPHA, method="gmres", rtol=1e-10,
                                        refinement_restarts=0, matvec_impl="xla")
     assert bool(info_ref["converged"][0])
@@ -54,12 +57,12 @@ def test_512_epe_of_port_and_jax_against_the_f64_oracle():
 
     f32 = torch.from_numpy(movie)
     t0 = time.perf_counter()
-    u_port, info_port = solve_frame_pair(f32[:1], f32[1:], torch.zeros(3, DIM, DIM),
+    u_port, info_port = solve_frame_pair(f32[:1], f32[1:], torch.zeros(3, dim, dim),
                                          ALPHA, ALPHA, method="auto")
     port_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     u_jax, info_jax = jax_solve_frame_pair(jnp.asarray(movie[0]), jnp.asarray(movie[1]),
-                                           jnp.zeros((3, DIM, DIM), jnp.float32), ALPHA, ALPHA,
+                                           jnp.zeros((3, dim, dim), jnp.float32), ALPHA, ALPHA,
                                            method="auto")
     u_jax = np.asarray(u_jax)
     jax_s = time.perf_counter() - t0

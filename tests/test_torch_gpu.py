@@ -18,7 +18,10 @@ system to within the refinement exit (0.1 x tol), far inside 1e-4 px;
 measured on the CPU the port and the JAX package agree to ~1e-5 px at this
 size.  A small batched sweep on the card launches B1 with no plain call and
 matches the CPU's sweep to 1e-4 relative; box flow on the card is held to
-the CPU's own float32 accuracy against the CPU's float64 run.
+the CPU's own float32 accuracy against the CPU's float64 run.  The routes
+of meshes over distinct devices, forced on the one card, and the meshes
+over two GPUs (which skip on a machine with one) are held bitwise against
+the one-device routes: the same per-block arithmetic.
 """
 
 import numpy as np
@@ -234,6 +237,124 @@ def test_default_sharded_and_distributed_solves_launch_b1(entry):
     assert ck.LAUNCHES > counts[0]
     assert (ck.PLAIN_CALLS, ck.EXT_LAUNCHES, ck.EXT_PLAIN_CALLS) == counts[1:]
     assert bool(torch.as_tensor(info["converged"]).all())
+
+
+def _two_gpus():
+    _cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two GPUs (meshes over distinct devices); this machine has "
+                    f"{torch.cuda.device_count()}")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+def _small_movie(n_frames=3):
+    movie, _ = make_translating_blob_movie(n_frames=n_frames, dimension=42, width=20.0,
+                                           sigma=3.0, v_x=0.15, v_y=0.1)
+    return (movie * 100.0).astype(np.float32)
+
+
+def _forced_solve(movie, mesh, solver=None, speed_alpha=1.0, remodelling_alpha=1000.0):
+    """``sharded_variational_solve``'s solve with the distinct-device routes
+    forced (``batch._mesh_solve(..., as_distinct=True)``)."""
+    from opticalflow_tpu_torch.parallel.batch import _mesh_solve
+
+    m = torch.as_tensor(movie).to(device=mesh.device(), dtype=torch.float32)
+    return _mesh_solve(m[:-1], m[1:], m.new_zeros((3,) + tuple(m.shape[1:])), speed_alpha,
+                       remodelling_alpha, solver or SolverConfig(), "compat", mesh,
+                       as_distinct=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 27])
+def test_exchange_route_on_the_card_equals_the_windows_route(K):
+    """The distinct-device route forced on the card: four B3 launches, one
+    per tile, and the windows route's output bitwise."""
+    from opticalflow_tpu_torch.parallel import mesh as pmesh
+    from opticalflow_tpu_torch.parallel import spmd
+
+    dev = _cuda()
+    frames, scalars, u = _tiled_operands(dev, 1, K, 1022, 1022, 1, 1, seed=4)
+    mesh = pmesh.make_mesh([dev] * 4, frames=1, tx=2, ty=2)
+    args = (mesh, frames, scalars[:, 0], scalars[:, 1], "compat")
+    windows = spmd.make_sharded_kernel_matvec(*args)
+    exchange = spmd.make_sharded_kernel_matvec(*args, as_distinct=True)
+    launches = ck.EXT_LAUNCHES
+    y = exchange(u)
+    assert ck.EXT_LAUNCHES == launches + 4
+    assert torch.equal(y, windows(u))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("matvec", ["pallas", "auto"])
+def test_exchange_route_solve_on_the_card(matvec):
+    """(1, 2, 2) on the card with the exchange route forced: 'pallas' and
+    'auto' both run B3, four launches for each of the windows route's, and
+    equal its solve bitwise."""
+    from opticalflow_tpu_torch.parallel import mesh as pmesh
+    from opticalflow_tpu_torch.parallel.batch import sharded_variational_solve
+
+    dev = _cuda()
+    mesh = pmesh.make_mesh([dev] * 4, frames=1, tx=2, ty=2)
+    kw = dict(mesh=mesh, speed_alpha=1000.0, remodelling_alpha=1000.0)
+    counts = ck.EXT_LAUNCHES, ck.LAUNCHES
+    u, info = _forced_solve(_small_movie(), solver=SolverConfig(matvec=matvec), **kw)
+    exchange = ck.EXT_LAUNCHES - counts[0]
+    assert exchange > 0 and ck.LAUNCHES == counts[1]
+    counts = ck.EXT_LAUNCHES
+    u_w, info_w = sharded_variational_solve(_small_movie(), solver=SolverConfig(matvec="pallas"),
+                                            **kw)
+    assert exchange == 4 * (ck.EXT_LAUNCHES - counts)
+    assert torch.equal(u, u_w) and torch.equal(info["iterations"], info_w["iterations"])
+
+
+@pytest.mark.gpu
+def test_frames_workers_on_the_card_equal_serial_blocks():
+    from opticalflow_tpu_torch.parallel import mesh as pmesh
+    from opticalflow_tpu_torch.parallel.batch import sharded_variational_solve
+
+    dev = _cuda()
+    kw = dict(mesh=pmesh.make_mesh([dev] * 2, frames=2, tx=1, ty=1), speed_alpha=1000.0,
+              remodelling_alpha=1000.0)
+    launches = ck.LAUNCHES
+    u, info = _forced_solve(_small_movie(5), **kw)
+    workers = ck.LAUNCHES - launches
+    launches = ck.LAUNCHES
+    u_s, info_s = sharded_variational_solve(_small_movie(5), **kw)
+    assert workers == ck.LAUNCHES - launches > 0
+    assert torch.equal(u, u_s)
+    for key in info:
+        assert torch.equal(info[key], info_s[key]), key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 1, 1), (1, 2, 1)])
+def test_meshes_over_two_gpus_equal_one_card(shape):
+    """Frames over two GPUs (a worker each) and tiles over two GPUs (seams
+    copied between them), each bitwise equal to the same mesh on one
+    card."""
+    from opticalflow_tpu_torch.parallel import mesh as pmesh
+    from opticalflow_tpu_torch.parallel.batch import sharded_variational_solve
+
+    two = _two_gpus()
+    kw = dict(speed_alpha=1000.0, remodelling_alpha=1000.0, solver=SolverConfig(matvec="pallas"))
+    u, info = sharded_variational_solve(_small_movie(5), mesh=pmesh.make_mesh(two, *shape), **kw)
+    u_1, info_1 = sharded_variational_solve(_small_movie(5),
+                                            mesh=pmesh.make_mesh([two[0]] * 2, *shape), **kw)
+    assert u.device == two[0]
+    assert torch.equal(u, u_1) and torch.equal(info["iterations"], info_1["iterations"])
+
+
+@pytest.mark.gpu
+def test_box_flow_over_two_gpus_equals_one_card():
+    from opticalflow_tpu_torch.parallel import mesh as pmesh
+    from opticalflow_tpu_torch.parallel.batch import sharded_box_flow
+
+    two = _two_gpus()
+    movie = _small_movie(5)
+    got = sharded_box_flow(movie, 7, mesh=pmesh.make_mesh(two, frames=2))
+    want = sharded_box_flow(movie, 7, mesh=pmesh.make_mesh([two[0]], frames=1))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.gpu

@@ -1,9 +1,11 @@
 """The port's sharded solve (``opticalflow_tpu_torch.parallel``) against the
 JAX package's (``opticalflow_tpu.parallel``), on the CPU.
 
-The port runs every mesh position on one device, so its meshes here are
-lists of ``torch.device('cpu')``, as the JAX tests use 8 virtual CPU
-devices; on the CPU kernel B3's wrapper runs its plain version.
+The meshes here are lists of ``torch.device('cpu')``, one device named
+several times, as the JAX tests use 8 virtual CPU devices (the routes for
+distinct devices are forced on them or use two CPU indices, as in
+tests/test_torch_multidevice.py); on the CPU kernel B3's wrapper runs its
+plain version.
 
 Tolerances:
 * meshes: the same axis sizes and the same errors as JAX's ``make_mesh``;
@@ -44,6 +46,16 @@ ALPHAS = dict(speed_alpha=500.0, remodelling_alpha=500.0)
 
 def cpu_mesh(frames, tx, ty):
     return pmesh.make_mesh([CPU] * (frames * tx * ty), frames=frames, tx=tx, ty=ty)
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the bitwise comparisons of two solves
+    (tests/test_torch_multidevice.py says why)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -160,6 +172,27 @@ def test_sharded_solve_matches_jax(movie, jax_solution, shape, matvec, dtype):
     np.testing.assert_allclose(u.numpy(), jax_solution, rtol=rtol, atol=atol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("matvec", ["pallas", "xla"])
+@pytest.mark.parametrize("shape", [(1, 2, 2), (1, 3, 1)])
+def test_exchange_route_matches_jax(movie, jax_solution, one_thread, shape, matvec, dtype):
+    """The distinct-device route (seams exchanged between tiles), forced on
+    one device: bitwise the windows route's solve, and within the bounds of
+    test_sharded_solve_matches_jax of JAX's (the 30x30 interior tiles over
+    (1, 2, 2) and (1, 3, 1))."""
+    kw = dict(mesh=cpu_mesh(*shape), solver=SolverConfig(matvec=matvec), dtype=dtype, **ALPHAS)
+    m = torch.as_tensor(movie, dtype=dtype)
+    u, infos = batch._mesh_solve(m[:-1], m[1:], m.new_zeros((3,) + tuple(m.shape[1:])),
+                                 ALPHAS["speed_alpha"], ALPHAS["remodelling_alpha"],
+                                 kw["solver"], "compat", kw["mesh"], as_distinct=True)
+    u_w, infos_w = batch.sharded_variational_solve(movie, **kw)
+    torch.testing.assert_close(u, u_w, rtol=0, atol=0)
+    assert infos["iterations"].tolist() == infos_w["iterations"].tolist()
+    assert bool(infos["converged"].all())
+    rtol, atol = (1e-3, 1e-4) if dtype == torch.float64 else (5e-3, 5e-4)
+    np.testing.assert_allclose(u.numpy(), jax_solution, rtol=rtol, atol=atol)
+
+
 def test_frames_only_mesh_solves_each_block_alone(movie):
     """A (4, 1, 1) mesh solves its 4 pairs as 4 batches of one; each equals
     the same pair solved alone, bitwise (the same arithmetic)."""
@@ -191,12 +224,31 @@ def test_matvec_routes(movie, matvec, shape, counter):
 
 
 def test_hybrid_on_a_tiling_mesh_and_distinct_devices_raise(movie):
+    """'hybrid' on a tiling mesh raises; so does a mesh whose devices are
+    of distinct types (devices of one type may be distinct:
+    test_distinct_devices_solve)."""
     with pytest.raises(ValueError, match="hybrid"):
         batch.sharded_variational_solve(movie[:2], mesh=cpu_mesh(1, 2, 2),
                                         solver=SolverConfig(matvec="hybrid"), **ALPHAS)
-    distinct = pmesh.make_mesh([CPU, torch.device("meta")], frames=1, tx=2, ty=1)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        batch.sharded_variational_solve(movie[:2], mesh=distinct, **ALPHAS)
+    with pytest.raises(ValueError, match="one type"):
+        pmesh.make_mesh([CPU, torch.device("meta")], frames=1, tx=2, ty=1)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 1), (2, 1, 1)])
+def test_distinct_devices_solve(movie, one_thread, shape):
+    """A mesh over distinct devices solves: the tiles exchange seams, the
+    frames rows run in workers, and the result equals the one-device mesh's
+    bitwise.  The CPU has no distinct devices, so the mesh names two CPU
+    indices; the mesh treats them as distinct, and tensors on either lie on
+    the CPU."""
+    distinct = pmesh.make_mesh([torch.device("cpu", 0), torch.device("cpu", 1)],
+                               frames=shape[0], tx=shape[1], ty=1)
+    assert distinct.distinct and not cpu_mesh(*shape).distinct
+    kw = dict(solver=SolverConfig(matvec="pallas"), dtype=torch.float64, **ALPHAS)
+    u, infos = batch.sharded_variational_solve(movie, mesh=distinct, **kw)
+    u1, infos1 = batch.sharded_variational_solve(movie, mesh=cpu_mesh(*shape), **kw)
+    torch.testing.assert_close(u, u1, rtol=0, atol=0)
+    assert infos["iterations"].tolist() == infos1["iterations"].tolist()
 
 
 def test_entry_points_run_on_the_card_or_raise(movie):
