@@ -13,8 +13,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    time per call of each (CUDA events), at the shapes of both paths (the
    solves' K = 1 and the multigrid probes' K = 27, at 254x254 and
    1022x1022 interiors, and a ragged one): the fused matvec (B1) and the
-   plain-stencil core (B2); and the hybrid matvec (B2 plus the boundary
-   ring) against B1's plain version;
+   plain-stencil core (B2), each also timed on the device, warm and with
+   the L2 evicted, at every shape its paths launch; and the hybrid matvec
+   (B2 plus the boundary ring) against B1's plain version;
 4. the 256x256 path once warm and once timed: ``variational_optical_flow``
    on the bench movie (13 frames of 256x256, 12 pairs, two-pass warm
    start, alpha_s = alpha_r = 1000), with every kernel's counters set to 0
@@ -31,10 +32,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    fused matvec (B1), the counters set to 0 just before each and read just
    after, each held to EPE < 1e-3 px against the oracle; then the phase
    split (``profile_solve_phases``) of the hybrid solve;
-6. the sharded path (``parallel``): kernel B3 against its plain version
-   at the shapes the tiled matvec gives it (the 1022x1022 interior as one
-   tile and as 2 x 2 tiles of 511x511, K = 1 and 27; 11 x 254x254; a
-   ragged 2 x 61x190), the tiled matvec against B1's plain version on the
+6. the sharded path (``parallel``): kernel B3 against its plain versions
+   at the shapes the tiled matvec gives it, in each operand form (the
+   whole field in one launch over its tiles: the 1022x1022 interior as one
+   tile and as 2 x 2 tiles of 511x511, 11 x 254x254, a ragged 2 x 61x190;
+   one tile and its four halo lines written into its window of the
+   result, as the exchange route launches it: tile (0, 0) of 511x511, and
+   a ragged 1 x 2 tiling of 61x190; the JAX kernel's pre-extended blocks),
+   K = 1 and 27, the tiled matvec against B1's plain version on the
    (1, 1, 1) and (1, 2, 2) meshes of the one card, timed beside B1, and
    on (1, 2, 2) the exchange route (the route of tiles on distinct GPUs,
    forced on the one card) bitwise against the windows route, each timed
@@ -94,15 +99,17 @@ The second-to-last line is a JSON object with one entry per kernel: its
 launches in each path's run (``launches_by_path``) and their sum
 (``launches``); its largest error against its plain version; at its timed
 shape (B1 and B2: 11 pairs of 254x254; B3: the 1022x1022 interior as one
-tile; K = 1), its device time per launch (``ms``, CUDA-graph replays) and
-the plain version's (``plain_ms``), both per back-to-back call
+tile; K = 1), its device time per launch warm (``ms``, CUDA-graph replays
+on operands left in L2) and cold (``cold_ms``, the L2 evicted before every
+launch), the plain version's (``plain_ms``), both per back-to-back call
 (``call_ms``, ``plain_call_ms``), the least time the card could take
 (``bound_ms``: the larger of the bytes moved over 3.35 TB/s and the
 operations over 67 TFLOP/s of float32, ``bound_by``), and ``library_ms``
-null (no single PyTorch call computes the EL stencil); B1's entry has the
-same timing keys at the bench's probe shape (K = 27) under
-``at_bench_shape``, at the sweep's shape under ``at_sweep_shape`` and at
-the command line's under ``at_cli_shape``.  The last line is
+null (no single PyTorch call computes the EL stencil); the same timing keys
+at every other shape a path launches: B1 under ``at_bench_shape`` (K =
+27), ``at_large_shape``, ``at_sweep_shape`` and ``at_cli_shape``, B2 under
+``at_bench_shape`` and ``at_large_shape``, B3 under ``at_path_shape``
+(each operand form and K).  The last line is
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
 
@@ -223,14 +230,15 @@ def write_pgm_folder(folder, movie):
             f.write(frame.astype(">u2").tobytes())
 
 
-def bound(N, K, m, n, extended):
+def bound(N, K, m, n, lines=False):
     """(bound_ms, bound_by) of one kernel call on N frame blocks of (m+2,
-    n+2) and K field stacks each: every input read once (I, scalars, the
-    fields: (m, n) planes, or (m+2, n+2) pre-extended), every output plane
-    written once, over the card's memory rate; the stencil's operations over
-    its float32 rate."""
-    field = (m + 2) * (n + 2) if extended else m * n
-    nbytes = 4 * (N * (m + 2) * (n + 2) + 2 * N + 3 * N * K * (field + m * n))
+    n+2) and K field stacks of (m, n) each: every input read once (I,
+    scalars, the field planes and, with ``lines``, each stack's four halo
+    lines, 2 (n + 2) + 2 m values a plane), every output plane written
+    once, over the card's memory rate; the stencil's operations over its
+    float32 rate."""
+    halo = 2 * (n + 2) + 2 * m if lines else 0
+    nbytes = 4 * (N * (m + 2) * (n + 2) + 2 * N + 3 * N * K * (2 * m * n + halo))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = FLOPS_PER_PIXEL * N * K * m * n / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -238,21 +246,25 @@ def bound(N, K, m, n, extended):
 
 def time_kernel(entry, label, kernel_fn, plain_fn, args, shape, card):
     """Fill ``entry`` with the timing keys of a kernel at one shape: device
-    and per-call times of the kernel and its plain version on ``args``,
-    and its bound."""
+    times of the kernel warm (``ms``: its operands left in L2 where they
+    fit) and cold (``cold_ms``: L2 evicted before every launch), of its
+    plain version, per-call times of both, and its bound."""
     from opticalflow_tpu_torch.utils.cuda_timing import call_ms, device_ms
 
     entry["ms"] = device_ms(lambda: kernel_fn(*args))
+    entry["cold_ms"] = device_ms(lambda: kernel_fn(*args), cold=True)
     entry["plain_ms"] = device_ms(lambda: plain_fn(*args), launches=10)
     entry["call_ms"] = call_ms(lambda: kernel_fn(*args), 50)
     entry["plain_call_ms"] = call_ms(lambda: plain_fn(*args), 10)
     entry["bound_ms"], entry["bound_by"] = bound(*shape)
     entry["library_ms"] = None  # no single PyTorch call computes the EL stencil
-    print(f"{label} timed at N={shape[0]} K={shape[1]} {shape[2]}x{shape[3]}: device "
-          f"{entry['ms'] * 1e3:.3f} us per launch (plain version {entry['plain_ms'] * 1e3:.1f} us), "
-          f"per call {entry['call_ms']:.4f} / {entry['plain_call_ms']:.4f} ms, bound "
-          f"{entry['bound_ms'] * 1e3:.3f} us ({entry['bound_by']}), "
-          f"{entry['bound_ms'] / entry['ms']:.2f} of it  [{card}]", flush=True)
+    print(f"{label} timed at N={shape[0]} K={shape[1]} {shape[2]}x{shape[3]}"
+          f"{' with halo lines' if shape[4:] and shape[4] else ''}: device "
+          f"{entry['ms'] * 1e3:.3f} us per launch warm, {entry['cold_ms'] * 1e3:.3f} cold (plain "
+          f"version {entry['plain_ms'] * 1e3:.1f} us), per call {entry['call_ms']:.4f} / "
+          f"{entry['plain_call_ms']:.4f} ms, bound {entry['bound_ms'] * 1e3:.3f} us "
+          f"({entry['bound_by']}), {entry['bound_ms'] / entry['ms']:.2f} of it warm, "
+          f"{entry['bound_ms'] / entry['cold_ms']:.2f} cold  [{card}]", flush=True)
 
 
 def _rel_errors(y, y_ref):
@@ -306,6 +318,12 @@ KERNELS = {
     "el_matvec_extended": ("B3", "opticalflow_tpu_torch/csrc/el_matvec_ext.cu",
                            "opticalflow_tpu/ops/pallas_kernels.py:70"),
 }
+
+
+# the shapes at which phase 3 times B1 and B2 besides their first case:
+# those their paths launch (the bench's at K = 27)
+TIMED_AT = {"el_matvec_reduced_fused": ("bench", "large", "sweep", "cli"),
+            "el_matvec_plain_core": ("bench", "large")}
 
 
 def check_kernels(movie, large, stack_frame, dev, card):
@@ -368,14 +386,12 @@ def check_kernels(movie, large, stack_frame, dev, card):
             entries[kernel]["max_abs_err"] = max(entries[kernel]["max_abs_err"], err)
             if index == 0:
                 time_kernel(entries[kernel], KERNELS[kernel][0], kernel_fn, plain_fn,
-                            (I, scalars, u, compat), (B, K, m, n, False), card)
-            elif kernel == "el_matvec_reduced_fused" and (which in ("sweep", "cli")
-                                                          or (which == "bench" and K > 1)):
-                # B1 also timed at the bench's probe shape and at the sweep
-                # path's and the command line's shapes
+                            (I, scalars, u, compat), (B, K, m, n), card)
+            elif which in TIMED_AT[kernel] and (which != "bench" or K > 1):
+                # also timed at every other shape its paths launch
                 timed = entries[kernel].setdefault(f"at_{which}_shape", {})[f"N={B} K={K}"] = {}
-                time_kernel(timed, f"B1 ({which})", kernel_fn, plain_fn, (I, scalars, u, compat),
-                            (B, K, m, n, False), card)
+                time_kernel(timed, f"{KERNELS[kernel][0]} ({which})", kernel_fn, plain_fn,
+                            (I, scalars, u, compat), (B, K, m, n), card)
         if hybrid:
             dy_mode = stencils.DY_COMPAT if compat else stencils.DY_FIXED
             ring = elop.ring_coeffs(elop.compute_coefficients(I, scalars[:, 0], scalars[:, 1],
@@ -396,12 +412,15 @@ def check_kernels(movie, large, stack_frame, dev, card):
 
 
 def check_extended_kernel(movie, large, dev, card, entry):
-    """B3 vs its plain version at the shapes the tiled matvec gives it, and
-    the tiled matvec vs B1's plain version on the (1, 1, 1) and (1, 2, 2)
-    meshes at 1022x1022, timed beside B1, and on (1, 2, 2) its exchange
-    route (the distinct-device route, forced on the one card) bitwise
-    against its windows route, both timed; fills B3's JSON entry (timed at
-    the first case)."""
+    """B3 vs its plain versions at the shapes the tiled matvec gives it, in
+    each operand form (the whole field in one launch over its tiles; one
+    tile and its four halo lines, written into its window of the result;
+    and pre-extended blocks, the JAX kernel's form), and the tiled matvec
+    vs B1's plain version on the (1, 1, 1) and (1, 2, 2) meshes at
+    1022x1022, timed beside B1, and on (1, 2, 2) its exchange route (the
+    distinct-device route, forced on the one card) bitwise against its
+    windows route, both timed; fills B3's JSON entry (timed at the first
+    case, and at every shape a route launches under ``at_path_shape``)."""
     from opticalflow_tpu_torch.ops import cuda_kernels as ck
     from opticalflow_tpu_torch.ops import elop
     from opticalflow_tpu_torch.parallel import spmd
@@ -410,40 +429,68 @@ def check_extended_kernel(movie, large, dev, card, entry):
 
     frames = {"bench": _normalised(movie, dev), "large": _normalised(large[:1], dev)}
     gen = torch.Generator(dev).manual_seed(2)
-    cases = [  # (name, frames, pairs, K, m, n, tx, ty)
-        ("1022x1022 as one tile", "large", 1, 1, 1022, 1022, 1, 1),
-        ("1022x1022 as one tile x 27 probes", "large", 1, 27, 1022, 1022, 1, 1),
-        ("2 x 2 tiles of 511x511", "large", 1, 1, 1022, 1022, 2, 2),
-        ("2 x 2 tiles of 511x511 x 27 probes", "large", 1, 27, 1022, 1022, 2, 2),
-        ("11 pairs 254x254", "bench", 11, 1, 254, 254, 1, 1),
-        ("2 pairs 61x190 ragged", "bench", 2, 1, 61, 190, 1, 1),
+    cases = [  # (name, frames, pairs, K, m, n, tx, ty, form, timed)
+        ("1022x1022 as one tile", "large", 1, 1, 1022, 1022, 1, 1, "field", True),
+        ("1022x1022 as one tile x 27 probes", "large", 1, 27, 1022, 1022, 1, 1, "field", True),
+        ("2 x 2 tiles of 511x511, one launch", "large", 1, 1, 1022, 1022, 2, 2, "field", True),
+        ("2 x 2 tiles of 511x511 x 27 probes, one launch", "large", 1, 27, 1022, 1022, 2, 2,
+         "field", True),
+        ("tile (0, 0) of 2 x 2 and its halo lines", "large", 1, 1, 1022, 1022, 2, 2, "lines",
+         True),
+        ("tile (0, 0) of 2 x 2 and its halo lines x 27 probes", "large", 1, 27, 1022, 1022, 2, 2,
+         "lines", True),
+        ("2 x 2 pre-extended blocks of 511x511", "large", 1, 1, 1022, 1022, 2, 2, "blocks",
+         False),
+        ("2 x 2 pre-extended blocks of 511x511 x 27 probes", "large", 1, 27, 1022, 1022, 2, 2,
+         "blocks", False),
+        ("11 pairs 254x254", "bench", 11, 1, 254, 254, 1, 1, "field", False),
+        ("2 pairs 61x190 ragged", "bench", 2, 1, 61, 190, 1, 1, "field", False),
+        ("2 pairs 61x190 as 1 x 2 tiles, halo lines", "bench", 2, 1, 61, 190, 1, 2, "lines",
+         False),
     ]
-    for index, (name, which, pairs, K, m, n, tx, ty) in enumerate(cases):
+    for index, (name, which, pairs, K, m, n, tx, ty, form, timed) in enumerate(cases):
         I_all, scalars_all = frames[which]
         I = I_all[:pairs, : m + 2, : n + 2].contiguous()
         u = torch.randn((pairs, K, 3, m, n), device=dev, generator=gen)
         I_t = spmd.to_tiles(I, tx, ty).contiguous()
-        u_t = spmd.to_tiles(elop.extend_interior(u), tx, ty).contiguous()
         s_t = scalars_all[:pairs].repeat_interleave(tx * ty, dim=0).contiguous()
-        N, mt, nt = I_t.shape[0], m // tx, n // ty
-        y = ck.el_matvec_extended(I_t, s_t, u_t, True)
-        y_ref = ck.el_matvec_extended_ref(I_t, s_t, u_t, True)
+        mt, nt = m // tx, n // ty
+        if form == "field":
+            kernel_fn, plain_fn = ck.el_matvec_tiled, ck.el_matvec_tiled_ref
+            args, shape = (I_t, s_t, u, True, (tx, ty)), (pairs * tx * ty, K, mt, nt)
+        elif form == "lines":  # tile (0, 0) of every pair, as the exchange route launches it
+            t = torch.arange(pairs, device=dev) * tx * ty
+            halo = ck.halo_lines(spmd.to_tiles(elop.extend_interior(u), tx, ty)[t])
+            window = torch.empty_like(u)[..., :mt, :nt]
+            kernel_fn, plain_fn = ck.el_matvec_tiled, ck.el_matvec_tiled_ref
+            args = (I_t[t].contiguous(), s_t[t].contiguous(), u[..., :mt, :nt], True, (1, 1),
+                    halo, window)
+            shape = (pairs, K, mt, nt, True)
+        else:
+            kernel_fn, plain_fn = ck.el_matvec_extended, ck.el_matvec_extended_ref
+            u_t = spmd.to_tiles(elop.extend_interior(u), tx, ty).contiguous()
+            args, shape = (I_t, s_t, u_t, True), (pairs * tx * ty, K, mt, nt, True)
+        y = kernel_fn(*args).clone()
+        y_ref = plain_fn(*args)
         torch.cuda.synchronize()
         rel, err = _rel_errors(y, y_ref)
         del y, y_ref
-        reps = 50 if N * K * mt * nt < 3e7 else 10
-        k_ms = call_ms(lambda: ck.el_matvec_extended(I_t, s_t, u_t, True), reps)
-        p_ms = call_ms(lambda: ck.el_matvec_extended_ref(I_t, s_t, u_t, True), 10)
-        print(f"el_matvec_extended {name} (N={N} blocks, K={K}): max rel err per field "
+        reps = 50 if pairs * K * m * n < 3e7 else 10
+        k_ms = call_ms(lambda: kernel_fn(*args), reps)
+        p_ms = call_ms(lambda: plain_fn(*args), 10)
+        print(f"B3 {name} ({form}, N={shape[0]} blocks, K={K}): max rel err per field "
               f"{', '.join(f'{r:.2e}' for r in rel)} (tol {REL_TOL:g}); kernel {k_ms:.4f} ms, "
               f"plain {p_ms:.4f} ms per call  [{card}]", flush=True)
         if max(rel) > REL_TOL:
-            raise AssertionError(f"el_matvec_extended disagrees with its plain version: {name}")
+            raise AssertionError(f"B3 disagrees with its plain version: {name}")
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         if index == 0:
-            time_kernel(entry, "B3", ck.el_matvec_extended, ck.el_matvec_extended_ref,
-                        (I_t, s_t, u_t, True), (N, K, mt, nt, True), card)
-        del I_t, u_t
+            time_kernel(entry, "B3", kernel_fn, plain_fn, args, shape, card)
+        elif timed:
+            key = f"{form} N={shape[0]} K={K} {mt}x{nt}"
+            time_kernel(entry.setdefault("at_path_shape", {}).setdefault(key, {}),
+                        f"B3 ({form})", kernel_fn, plain_fn, args, shape, card)
+        del I_t, u, args
 
     # the tiled matvec of the sharded solve against B1's plain version
     I, scalars = frames["large"]

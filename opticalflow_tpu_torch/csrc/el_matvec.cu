@@ -48,67 +48,35 @@
 //     thread that staged a doubled corner doubles it in shared memory after
 //     its own copies landed, before the block's barrier.
 // One thread per (column, 4 rows), no atomics: results are deterministic.
+//
+// B2 and B3 run the same design as one template, el_tiles.cuh, whose
+// constants, ring and staging helpers this kernel shares; B1 keeps its own
+// kernel body because the template, instantiated with this fold rule, was
+// bitwise equal but 0.1-3.2% slower at B1's shapes (PERF.md's kernel
+// findings).
 
 #include <climits>
 
 #include <cuda_runtime.h>
 
-#include "el_stencil.cuh"
+#include "el_tiles.cuh"
 
 namespace {
 
 using el_stencil::Coeffs;
 
-constexpr int kCols = 32;          // tile columns = threads along x
-constexpr int kRows = 4;           // output rows per thread
-constexpr int kHaloW = kCols + 2;  // staged columns
-constexpr int kStages = 2;         // ring depth
-// threads along y of a block (its warps): at K = 1 tiles of 32 x 16 and
-// four blocks of 128 threads an SM; at K > 1 tiles of 32 x 32 and two
-// blocks of 256 threads
-constexpr int kWarpsSolve = 4;
-constexpr int kWarpsProbes = 8;
-
-// The geometry of a block of kCols x W threads and of its tile.
-template <int W>
-struct Tile {
-  static constexpr int kRowsOut = W * kRows;  // output rows of the tile
-  static constexpr int kHaloH = kRowsOut + 2;
-  static constexpr int kHalo = kHaloW * kHaloH;  // elements of one staged plane
-  static constexpr int kThreads = kCols * W;
-  static constexpr int kPerThread = (kHalo + kThreads - 1) / kThreads;
-  static constexpr int kSlot = 4 * kHalo;  // floats per stage: I, then ux, uy, g
-  static constexpr int kSmemBytes = kStages * kSlot * static_cast<int>(sizeof(float));
-  static constexpr int kMinBlocksPerSM = 512 / kThreads;  // at most 128 registers a thread
-};
-
-// 4-byte asynchronous copy global -> shared; zero-fills (and reads nothing)
-// when !valid.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most N of this thread's most recent groups are pending.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Interior index of extended index e in [-1, len] (the mirror rows: -1
-// reads 1, len reads len - 2); -1 beyond the one-pixel ring (staged as
-// zero, only read by outputs that are discarded).
-__device__ __forceinline__ int fold(int e, int len) {
-  if (e == -1) return 1;
-  if (e == len) return len - 2;
-  return (e >= 0 && e < len) ? e : -1;
-}
+// the tile geometry, the ring and the staging helpers of el_tiles.cuh
+using el_tiles::cp_async4;
+using el_tiles::cp_async_commit;
+using el_tiles::cp_async_wait;
+using el_tiles::fold;
+using el_tiles::kCols;
+using el_tiles::kHaloW;
+using el_tiles::kRows;
+using el_tiles::kStages;
+using el_tiles::kWarpsProbes;
+using el_tiles::kWarpsSolve;
+using el_tiles::Tile;
 
 // One stage: work item (pair b, tile at (i0, j0)) and field stack k.
 struct Stage {

@@ -11,13 +11,23 @@
 // plain version agree everywhere.  The caller overwrites the ring with the
 // mirror semantics (ops/elop.ring_apply).
 //
-// The kernel, its layout and what bounds it are in el_stencil.cuh; here the
-// halo tile is staged with zeros outside the interior.
+// What bounds it (memory: 28 bytes a pixel at K = 1) and the design
+// against it are in el_tiles.cuh: this is its kZero instantiation, whose
+// border tiles zero-fill the halo elements outside the interior.
 
-#include "el_stencil.cuh"
+#include "el_tiles.cuh"
 
 extern "C" int el_matvec_plain_core(const float* I, const float* scalars, const float* u,
                                     float* out, int B, int K, int m, int n, int compat,
                                     void* stream) {
-  return el_stencil::launch<el_stencil::kZero>(I, scalars, u, out, B, K, m, n, compat, stream);
+  el_tiles::Args a{};
+  a.I = I;
+  a.scalars = scalars;
+  a.u = u;
+  a.out = out;
+  a.K = K;
+  a.m = m;
+  a.n = n;
+  a.compat = compat;
+  return el_tiles::launch<el_tiles::kZero>(a, B, stream);
 }

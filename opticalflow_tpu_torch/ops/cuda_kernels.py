@@ -16,21 +16,28 @@ Three kernels, all on the stencil of ``csrc/el_stencil.cuh``:
   ring overwritten by ``elop.ring_apply`` it is the hybrid matvec
   (:func:`el_matvec_hybrid`, the counterpart of ``make_hybrid_ops``), which
   equals the fused matvec;
-* the stencil on pre-extended blocks (``csrc/el_matvec_ext.cu``), the
+* the stencil on the tiles of a mesh (``csrc/el_matvec_ext.cu``), the
   counterpart of ``pallas_kernels.py::_el_matvec_kernel``, the kernel of the
-  tiled matvec (parallel.spmd): wrapper :func:`el_matvec_extended`, plain
-  version :func:`el_matvec_extended_ref`, counters ``EXT_LAUNCHES`` and
+  tiled matvec (parallel.spmd): wrapper :func:`el_matvec_tiled` (every tile
+  of a field read in place, or one tile and its four halo lines), plain
+  version :func:`el_matvec_tiled_ref`; on the JAX kernel's own operands,
+  pre-extended blocks, :func:`el_matvec_extended` (the same kernel, the
+  block cut into its interior and halo lines) and its plain version
+  :func:`el_matvec_extended_ref`; counters ``EXT_LAUNCHES`` and
   ``EXT_PLAIN_CALLS``.
 
+All three kernels are instances of one tiled kernel (``csrc/el_tiles.cuh``)
+with their staging rule as its parameter; none has a limit on B * K.
+
 On CPU tensors a wrapper runs its plain version; on CUDA tensors it checks
-device, dtype, shape and contiguity, launches its kernel on the current
+device, dtype, shape and layout, launches its kernel on the current
 stream, and raises on any failure — there is no fallback.  It adds one to
 its launch counter per launch, and a plain version to its own counter per
 call, under a lock, so the counts stay exact when several threads solve
 at once (the sharded solve's workers, parallel.batch).  The first launch
 of each kernel on each device, and of each block shape (K = 1 and K > 1),
-holds a lock too: B1 sets its shared-memory limit and caches its resident
-blocks per device on that launch.  :func:`load_library` builds each source of ``ENTRY_POINTS`` with
+holds a lock too: the kernels set their shared-memory limit and cache
+their resident blocks per device on that launch.  :func:`load_library` builds each source of ``ENTRY_POINTS`` with
 ``nvcc`` on first use, one process per source, all started together, into
 ``_build/`` beside the package (plain C entry points loaded with ctypes),
 keyed by a hash of every source and header under ``csrc/`` and the flags.
@@ -58,8 +65,8 @@ LAUNCHES = 0  # kernel launches by el_matvec_reduced_fused
 PLAIN_CALLS = 0  # calls of the plain version el_matvec_reduced_fused_ref
 CORE_LAUNCHES = 0  # kernel launches by el_matvec_plain_core
 CORE_PLAIN_CALLS = 0  # calls of the plain version el_matvec_plain_core_ref
-EXT_LAUNCHES = 0  # kernel launches by el_matvec_extended
-EXT_PLAIN_CALLS = 0  # calls of the plain version el_matvec_extended_ref
+EXT_LAUNCHES = 0  # kernel launches by el_matvec_tiled (el_matvec_extended included)
+EXT_PLAIN_CALLS = 0  # calls of the plain versions el_matvec_tiled_ref, el_matvec_extended_ref
 BUILD_SECONDS = None  # wall time of this process's nvcc builds, if it built
 BUILD_LOG = ""  # nvcc's output of those builds (-Xptxas -v: registers, smem)
 
@@ -68,15 +75,19 @@ SOURCE_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# C entry point of each source; all take (I, scalars, u, out, B, K, m, n,
-# compat, stream)
-ENTRY_POINTS = {"el_matvec.cu": "el_matvec_reduced_fused",
-                "el_matvec_plain.cu": "el_matvec_plain_core",
-                "el_matvec_ext.cu": "el_matvec_extended"}
-
-# kernels whose grid puts B * K on its z axis (B1's grid is one-dimensional
-# and has no such limit)
-GRID_Z_LIMITED = ("el_matvec_plain_core", "el_matvec_extended")
+# argument types of the C entry points: B1 and B2 take (I, scalars, u, out,
+# B, K, m, n, compat, stream); B3 (I, scalars, u, out, top, bottom, left,
+# right, N, K, tx, ty, m, n, u_plane, u_row, out_plane, out_row, top_plane,
+# bottom_plane, left_plane, right_plane, left_step, right_step, compat,
+# stream)
+_PAIRS_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_TILES_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+               + [ctypes.c_longlong, ctypes.c_int] * 2 + [ctypes.c_longlong] * 4
+               + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+# C entry point of each source and its argument types
+ENTRY_POINTS = {"el_matvec.cu": ("el_matvec_reduced_fused", _PAIRS_ARGS),
+                "el_matvec_plain.cu": ("el_matvec_plain_core", _PAIRS_ARGS),
+                "el_matvec_ext.cu": ("el_matvec_tiled", _TILES_ARGS)}
 
 _FUNCTIONS: Dict[str, ctypes._CFuncPtr] = {}
 _LOAD_LOCK = threading.Lock()  # one build, however many threads load at once
@@ -102,9 +113,11 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
 
 
-def build(source_dir: str = SOURCE_DIR) -> Dict[str, ctypes._CFuncPtr]:
+def build(source_dir: str = SOURCE_DIR,
+          entry_points: Optional[Dict[str, tuple]] = None) -> Dict[str, ctypes._CFuncPtr]:
     """Build (once per version of the sources under ``source_dir``) and load
-    each source of ``ENTRY_POINTS`` that ``source_dir`` holds into
+    each source of ``entry_points`` (``ENTRY_POINTS`` when ``None``: source
+    -> (C entry point, argument types)) that ``source_dir`` holds into
     ``BUILD_DIR``; returns the C entry points by name.  Another version's
     ``csrc`` builds beside this one's (the libraries are keyed by the
     sources' hash).  Sets ``BUILD_SECONDS`` and ``BUILD_LOG`` when it
@@ -115,7 +128,7 @@ def build(source_dir: str = SOURCE_DIR) -> Dict[str, ctypes._CFuncPtr]:
         with open(path, "rb") as fh:
             h.update(os.path.basename(path).encode() + b"\0" + fh.read())
     digest = h.hexdigest()[:16]
-    entry_points = {src: entry for src, entry in ENTRY_POINTS.items()
+    entry_points = {src: entry for src, entry in (entry_points or ENTRY_POINTS).items()
                     if os.path.exists(os.path.join(source_dir, src))}
     libs = {src: os.path.join(BUILD_DIR, f"lib{src[:-3]}_{digest}.so") for src in entry_points}
     missing = [src for src, lib in libs.items() if not os.path.exists(lib)]
@@ -135,9 +148,9 @@ def build(source_dir: str = SOURCE_DIR) -> Dict[str, ctypes._CFuncPtr]:
         for src in missing:
             os.replace(f"{libs[src]}.{os.getpid()}.tmp", libs[src])
     functions = {}
-    for src, entry in entry_points.items():
+    for src, (entry, argtypes) in entry_points.items():
         fn = getattr(ctypes.CDLL(libs[src]), entry)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         functions[entry] = fn
     return functions
@@ -176,39 +189,158 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def _launch(entry: str, I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor,
-            compat: bool, extended: bool = False,
-            library: Optional[Dict[str, ctypes._CFuncPtr]] = None) -> torch.Tensor:
-    """Check the operands of a kernel call and launch ``entry`` of
-    ``library`` (a :func:`build`; this checkout's when ``None``) on the
-    current stream; raises on anything the kernel does not take and on a
-    failed launch."""
-    B, K, m, n = _check_shapes(I, scalars, u, extended)
-    for name, t in (("I", I), ("scalars", scalars), ("u", u)):
-        if t.device != u.device or t.device.type != "cuda":
+def _check_operands(device: torch.device, **tensors: torch.Tensor) -> None:
+    """ValueError / TypeError unless every tensor is float32 on ``device``,
+    a CUDA device."""
+    for name, t in tensors.items():
+        if t.device != device or t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}; all operands must be on one CUDA device")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
+
+
+def _check_contiguous(**tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if entry in GRID_Z_LIMITED and B * K > 65535:
-        raise ValueError(f"B*K = {B * K} exceeds {entry}'s grid z limit 65535")
-    fn = (library or load_library())[entry]
-    out = u.new_empty(u.shape[:-2] + (m, n))
-    first_use = (id(fn), u.device.index, K > 1)
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        args = (I.data_ptr(), scalars.data_ptr(), u.data_ptr(), out.data_ptr(),
-                B, K, m, n, int(bool(compat)), stream)
+
+
+def _call(fn: ctypes._CFuncPtr, device: torch.device, K: int, args: tuple) -> int:
+    """``fn(*args, stream)`` on the current stream of ``device``; the first
+    launch of each kernel on each device and block shape (K = 1, K > 1)
+    holds a lock (the kernels cache their resident blocks per device
+    then)."""
+    first_use = (id(fn), device.index, K > 1)
+    with torch.cuda.device(device):
+        args = args + (torch.cuda.current_stream(device).cuda_stream,)
         if first_use in _LAUNCHED:
+            return fn(*args)
+        with _FIRST_USE_LOCK:
             rc = fn(*args)
-        else:
-            with _FIRST_USE_LOCK:
-                rc = fn(*args)
-                if rc == 0:
-                    _LAUNCHED.add(first_use)
+            if rc == 0:
+                _LAUNCHED.add(first_use)
+            return rc
+
+
+def _launch(entry: str, I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor,
+            compat: bool, library: Optional[Dict[str, ctypes._CFuncPtr]] = None) -> torch.Tensor:
+    """Check the operands of a B1 or B2 call and launch ``entry`` of
+    ``library`` (a :func:`build`; this checkout's when ``None``) on the
+    current stream; raises on anything the kernel does not take and on a
+    failed launch."""
+    B, K, m, n = _check_shapes(I, scalars, u)
+    _check_operands(u.device, I=I, scalars=scalars, u=u)
+    _check_contiguous(I=I, scalars=scalars, u=u)
+    fn = (library or load_library())[entry]
+    out = u.new_empty(u.shape)
+    rc = _call(fn, u.device, K, (I.data_ptr(), scalars.data_ptr(), u.data_ptr(), out.data_ptr(),
+                                 B, K, m, n, int(bool(compat))))
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {rc}")
+    return out
+
+
+def _check_tiled(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor, tiles, halo,
+                 out: Optional[torch.Tensor]):
+    """(N, K, m, n, tx, ty) of a B3 call, or ValueError: ``u`` (B, [K,] 3,
+    tx m, ty n), N = B tx ty frame blocks, without ``halo``; one tile (N,
+    [K,] 3, m, n) and its four halo lines with it (tiles (1, 1))."""
+    if u.dim() not in (4, 5) or u.shape[-3] != 3:
+        raise ValueError(f"u must be (B, 3, M, N) or (B, K, 3, M, N), got {tuple(u.shape)}")
+    K = u.shape[1] if u.dim() == 5 else 1
+    tx, ty = tiles
+    M, Nn = u.shape[-2:]
+    if halo is None:
+        if tx < 1 or ty < 1 or M % tx or Nn % ty:
+            raise ValueError(f"the field {M}x{Nn} does not tile evenly over ({tx}, {ty})")
+        if M < 2 or Nn < 2:
+            raise ValueError(f"the field must be at least 2x2 (its mirror rows), got {M}x{Nn}")
+    else:
+        if (tx, ty) != (1, 1):
+            raise ValueError("a tile with halo lines is one tile: tiles must be (1, 1)")
+        lead = tuple(u.shape[:-2])
+        want = [lead + (Nn + 2,)] * 2 + [lead + (M,)] * 2
+        got = [tuple(h.shape) for h in halo]
+        if got != want:
+            raise ValueError(f"halo lines (top, bottom, left, right) must be {want}, got {got}")
+    N, m, n = u.shape[0] * tx * ty, M // tx, Nn // ty
+    if m < 1 or n < 1:
+        raise ValueError(f"tiles must be at least 1x1, got {m}x{n}")
+    if tuple(I.shape) != (N, m + 2, n + 2):
+        raise ValueError(f"I must be {(N, m + 2, n + 2)}, got {tuple(I.shape)}")
+    if tuple(scalars.shape) != (N, 2):
+        raise ValueError(f"scalars must be {(N, 2)}, got {tuple(scalars.shape)}")
+    if out is not None and out.shape != u.shape:
+        raise ValueError(f"out must be {tuple(u.shape)}, got {tuple(out.shape)}")
+    return N, K, m, n, tx, ty
+
+
+def _plane_pitches(name: str, t: torch.Tensor):
+    """(plane, row) pitches in floats of a (N, [K,] 3, m, n) tensor whose
+    flattened leading axes index whole (m, n) planes ``plane`` apart, each
+    of rows ``row`` apart with unit stride along them (a contiguous tensor,
+    or a window of one), or ValueError."""
+    m, n = t.shape[-2:]
+    plane, row = t.stride(-3), t.stride(-2)
+    ok = (t.stride(-1) == 1 or n == 1) and row >= n and plane >= (m - 1) * row + n
+    expected = plane
+    for d in range(t.dim() - 3, -1, -1):
+        ok &= t.shape[d] == 1 or t.stride(d) == expected
+        expected *= t.shape[d]
+    if not ok:
+        raise ValueError(f"{name} must be planes of one pitch with unit-stride rows "
+                         f"(contiguous, or a window of a contiguous field)")
+    return plane, row
+
+
+def _line_pitches(name: str, t: torch.Tensor):
+    """(plane, step) pitches in floats of a (N, [K,] 3, L) halo line whose
+    flattened leading axes index whole lines ``plane`` apart, its elements
+    ``step`` apart (a contiguous line, or a row or column of a field), or
+    ValueError."""
+    plane, step = t.stride(-2), t.stride(-1)
+    ok = step >= 1 and plane >= (t.shape[-1] - 1) * step + 1
+    expected = plane
+    for d in range(t.dim() - 2, -1, -1):
+        ok &= t.shape[d] == 1 or t.stride(d) == expected
+        expected *= t.shape[d]
+    if not ok:
+        raise ValueError(f"the {name} halo line must be lines of one pitch (contiguous, or a "
+                         f"row or column of a contiguous field)")
+    return plane, step
+
+
+def _launch_tiled(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor, compat: bool,
+                  tiles=(1, 1), halo=None, out: Optional[torch.Tensor] = None,
+                  library: Optional[Dict[str, ctypes._CFuncPtr]] = None) -> torch.Tensor:
+    """Check the operands of a B3 call (:func:`el_matvec_tiled`) and launch
+    it from ``library`` (this checkout's build when ``None``) on the
+    current stream; returns ``out``; raises on anything the kernel does not
+    take and on a failed launch."""
+    N, K, m, n, tx, ty = _check_tiled(I, scalars, u, tiles, halo, out)
+    lines = dict(zip(("top", "bottom", "left", "right"), halo or ()))
+    _check_operands(u.device, I=I, scalars=scalars, u=u, **lines,
+                    **({} if out is None else {"out": out}))
+    _check_contiguous(I=I, scalars=scalars)
+    if halo is None:
+        _check_contiguous(u=u, **({} if out is None else {"out": out}))
+        line_args = (None,) * 4 + (0,) * 6
+    else:
+        pitches = {name: _line_pitches(name, t) for name, t in lines.items()}
+        if pitches["top"][1] != 1 or pitches["bottom"][1] != 1:
+            raise ValueError("the top and bottom halo lines must have unit-stride elements")
+        line_args = (*(t.data_ptr() for t in halo), *(pitches[k][0] for k in lines),
+                     pitches["left"][1], pitches["right"][1])
+    if out is None:
+        out = u.new_empty(u.shape)
+    u_plane, u_row = _plane_pitches("u", u)
+    out_plane, out_row = _plane_pitches("out", out)
+    fn = (library or load_library())["el_matvec_tiled"]
+    rc = _call(fn, u.device, K, (I.data_ptr(), scalars.data_ptr(), u.data_ptr(), out.data_ptr(),
+                                 *line_args[:4], N, K, tx, ty, m, n, u_plane, u_row, out_plane,
+                                 out_row, *line_args[4:], int(bool(compat))))
+    if rc != 0:
+        raise RuntimeError(f"el_matvec_tiled kernel launch failed: cudaError {rc}")
     return out
 
 
@@ -277,12 +409,70 @@ def el_matvec_hybrid(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor, co
     return elop.ring_overwrite(el_matvec_plain_core(I, scalars, u, compat), ring, u)
 
 
+def el_matvec_tiled_ref(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor, compat: bool,
+                        tiles=(1, 1), halo=None,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of the kernel on mesh tiles: the EL stencil on
+    every (m, n) tile, coefficients rebuilt from its (m+2, n+2) frame block
+    ``I[t]`` and its ``scalars[t]`` = (alpha_s, alpha_r), the field
+    extended by its seams.
+
+    Without ``halo``: ``u`` (B, [K,] 3, tx m, ty n) is the whole interior
+    field of B pairs, ``tiles`` = (tx, ty), tile (p, q) of pair b is block
+    t = b tx ty + p ty + q; a seam reads the neighbour tile, a global edge
+    the reduced system's mirror values (``elop.extend_interior``).  With
+    ``halo`` = (top, bottom, left, right): ``u`` (N, [K,] 3, m, n) is one
+    tile per block, extended by its rows above and below (N, [K,] 3, n +
+    2), corners included, and its columns left and right (N, [K,] 3, m).
+    Returns the (B, [K,] 3, tx m, ty n) / (N, [K,] 3, m, n) result, written
+    into ``out`` when given.
+    """
+    _, _, _, _, tx, ty = _check_tiled(I, scalars, u, tiles, halo, out)
+    _count("EXT_PLAIN_CALLS")
+    if halo is None:
+        # spmd imports this module, so its layout helpers are imported here
+        from opticalflow_tpu_torch.parallel.spmd import from_tiles, to_tiles
+
+        u_ext = to_tiles(elop.extend_interior(u), tx, ty)
+        y = elop.interior_apply(_coefficients(I, scalars, u_ext, compat), u_ext)
+        y = from_tiles(y, u.shape[0], tx, ty)
+    else:
+        top, bottom, left, right = halo
+        mid = torch.cat([left[..., None], u, right[..., None]], dim=-1)
+        u_ext = torch.cat([top[..., None, :], mid, bottom[..., None, :]], dim=-2)
+        y = elop.interior_apply(_coefficients(I, scalars, u_ext, compat), u_ext)
+    return y if out is None else out.copy_(y)
+
+
+def el_matvec_tiled(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor, compat: bool,
+                    tiles=(1, 1), halo=None, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The stencil on mesh tiles of :func:`el_matvec_tiled_ref`, reading
+    each tile and its seams where they lie: CUDA tensors go through kernel
+    B3 (``u`` and ``out`` contiguous without ``halo``; with it, any window
+    of a contiguous field, and each halo line contiguous or a row / column
+    of one), CPU tensors through the plain version."""
+    tensors = (I, scalars, u, *(halo or ()), *(() if out is None else (out,)))
+    if _on_cpu(*tensors):
+        return el_matvec_tiled_ref(I, scalars, u, compat, tiles, halo, out)
+    out = _launch_tiled(I, scalars, u, compat, tiles, halo, out)
+    _count("EXT_LAUNCHES")
+    return out
+
+
+def halo_lines(u_ext: torch.Tensor):
+    """(top, bottom, left, right) halo lines of extended blocks (..., m+2,
+    n+2): rows 0 and -1 (corners included) and columns 0 and -1 of the
+    interior rows, as views."""
+    return u_ext[..., 0, :], u_ext[..., -1, :], u_ext[..., 1:-1, 0], u_ext[..., 1:-1, -1]
+
+
 def el_matvec_extended_ref(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor,
                            compat: bool) -> torch.Tensor:
-    """Plain PyTorch version of the kernel on pre-extended blocks: ``I``
-    (N, m+2, n+2) blocks of the true frame with their halo, ``scalars``
-    (N, 2), ``u`` (N, 3, m+2, n+2) or (N, K, 3, m+2, n+2) field blocks
-    already extended; returns the EL stencil (N, [K,] 3, m, n)."""
+    """Plain PyTorch version of kernel B3 on the JAX kernel's operands,
+    pre-extended blocks: ``I`` (N, m+2, n+2) blocks of the true frame with
+    their halo, ``scalars`` (N, 2), ``u`` (N, 3, m+2, n+2) or (N, K, 3,
+    m+2, n+2) field blocks already extended; returns the EL stencil (N,
+    [K,] 3, m, n)."""
     _check_shapes(I, scalars, u, extended=True)
     _count("EXT_PLAIN_CALLS")
     return elop.interior_apply(_coefficients(I, scalars, u, compat), u)
@@ -291,10 +481,11 @@ def el_matvec_extended_ref(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tens
 def el_matvec_extended(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor,
                        compat: bool) -> torch.Tensor:
     """The stencil on pre-extended blocks of :func:`el_matvec_extended_ref`;
-    CUDA tensors go through the hand-written kernel, CPU tensors through
+    CUDA tensors go through kernel B3, each contiguous block read as its
+    interior and its halo lines (views, not copied); CPU tensors through
     the plain version."""
     if _on_cpu(I, scalars, u):
         return el_matvec_extended_ref(I, scalars, u, compat)
-    out = _launch("el_matvec_extended", I, scalars, u, compat, extended=True)
-    _count("EXT_LAUNCHES")
-    return out
+    _check_shapes(I, scalars, u, extended=True)
+    _check_contiguous(u=u)
+    return el_matvec_tiled(I, scalars, u[..., 1:-1, 1:-1], compat, halo=halo_lines(u))

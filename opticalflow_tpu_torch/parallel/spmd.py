@@ -18,19 +18,20 @@ of its own):
   extension's mirror row or column; at a global corner the extension's
   doubled diagonal value, which the JAX package restores by hand.  The
   blocks of ``_exchange_frame`` are likewise the windows of the (m+2, n+2)
-  frame itself.  So one application is one extension, one strided copy of
-  the windows into a leading tile axis, one launch of kernel B3 over every
-  tile of every pair (``cuda_kernels.el_matvec_extended``) and one copy
-  back.
+  frame itself.  Kernel B3 reads those windows where they lie: one
+  application is one launch over every tile of every pair
+  (``cuda_kernels.el_matvec_tiled`` on the whole interior field), with no
+  copy of the field in or out.
 * **Exchange, tiles on distinct devices** (or forced with
   ``as_distinct=True``).  One application splits the interior field on the
   home device (the device of tile (0, 0)) into tiles, copies each tile to
   its device, hands the one-pixel seams between neighbours
-  (:func:`exchange_and_extend_u`, the port of ``pallas_spmd.py:38-104``:
-  columns first, then rows, so the corners ride along), launches B3 once
-  per tile on its device, and copies the outputs back to be assembled on
-  the home device.  The Krylov vectors and the V-cycle stay on the home
-  device.
+  (:func:`exchange_halos`, the port of ``pallas_spmd.py:38-104``: columns
+  first, then rows, so the corners ride along) as four halo lines per
+  tile, and launches B3 once per tile on its device on the tile and its
+  lines; each output is written into its window of the result on the home
+  device (in place where the tile lies there, else copied back).  The
+  Krylov vectors and the V-cycle stay on the home device.
 
 Both routes build the frame blocks once per factory call (the exchange
 route through :func:`exchange_frame`, the port of ``pallas_spmd.py:106-
@@ -45,6 +46,7 @@ from __future__ import annotations
 import threading
 from typing import Callable, List
 
+import numpy as np
 import torch
 
 from opticalflow_tpu_torch.core import stencils
@@ -119,23 +121,55 @@ def _extend_lines(blocks: Blocks, dim: int, edges) -> Blocks:
     return out if dim == -1 else [list(row) for row in zip(*out)]
 
 
-def exchange_and_extend_u(tiles: Blocks) -> Blocks:
-    """The (..., mt+2, nt+2) extension of every (..., mt, nt) interior tile
-    (the port of ``pallas_spmd._exchange_and_extend_u``): neighbour halos at
-    tile seams, the reduced system's mirror semantics at global edges (the
-    extension at -1 mirrors interior index 1), exactly the four global
-    corners doubled; equal to the tiles' windows of
-    ``elop.extend_interior`` of the whole field.  Tiles are at least 2 x 2."""
+def exchange_halos(tiles: Blocks) -> List[List[tuple]]:
+    """The one-pixel halo of every (..., mt, nt) interior tile as four
+    lines on the tile's device, ``(top, bottom, left, right)``:
+    the rows above and below (..., nt+2), corners included, and the columns
+    left and right (..., mt) (the port of
+    ``pallas_spmd._exchange_and_extend_u``): neighbour slices at tile seams,
+    the reduced system's mirror values at global edges (the extension at -1
+    mirrors interior index 1), exactly the four global corners doubled;
+    equal to the borders of the tiles' windows of ``elop.extend_interior``
+    of the whole field.  The rows are new tensors; a column is a view of
+    its tile where it lies on the same device.  Tiles are at least 2 x 2."""
+    tx, ty = len(tiles), len(tiles[0])
     # phase 1: columns (the ty axis); a global edge mirrors column 1 / -2
-    uw = _extend_lines(tiles, -1, lambda p, line: (line[0][..., 1], line[-1][..., -2]))
-    # phase 2: rows (the tx axis) of the column-extended blocks, so the
+    left, right = zip(*[edge_halo_1d(row, -1, row[0][..., 1], row[-1][..., -2])
+                        for row in tiles])
+
+    def ext_row(p, q, i):
+        """Row i of tile (p, q) extended by its column halos."""
+        return torch.cat([left[p][q][..., i, None], tiles[p][q][..., i, :],
+                          right[p][q][..., i, None]], dim=-1)
+
+    # phase 2: rows (the tx axis) of the column-extended tiles, so the
     # corners ride along; a global edge mirrors row 1 / -2
-    ue = _extend_lines(uw, -2, lambda q, line: (line[0][..., 1, :], line[-1][..., -2, :]))
+    halos = [[None] * ty for _ in range(tx)]
+    for q in range(ty):
+        for p in range(tx):
+            device = tiles[p][q].device
+            top = ext_row(p - 1, q, -1).to(device) if p > 0 else ext_row(p, q, 1)
+            bottom = ext_row(p + 1, q, 0).to(device) if p < tx - 1 else ext_row(p, q, -2)
+            halos[p][q] = (top, bottom, left[p][q], right[p][q])
+        _count_seams(2 * (tx - 1))
     # the two phases put 1x the diagonal value at the global corners,
     # extend_interior 2x
-    for p, q, i, j in ((0, 0, 0, 0), (0, -1, 0, -1), (-1, 0, -1, 0), (-1, -1, -1, -1)):
-        ue[p][q][..., i, j] *= 2.0
-    return ue
+    for p, q, line, j in ((0, 0, 0, 0), (0, -1, 0, -1), (-1, 0, 1, 0), (-1, -1, 1, -1)):
+        halos[p][q][line][..., j] *= 2.0
+    return halos
+
+
+def exchange_and_extend_u(tiles: Blocks) -> Blocks:
+    """The (..., mt+2, nt+2) extension of every (..., mt, nt) interior tile
+    by its :func:`exchange_halos` lines (the JAX package's block form,
+    which the plain-stencil route takes); equal to the tiles' windows of
+    ``elop.extend_interior`` of the whole field."""
+    blocks = [[None] * len(row) for row in tiles]
+    for p, row in enumerate(exchange_halos(tiles)):
+        for q, (top, bottom, left, right) in enumerate(row):
+            mid = torch.cat([left[..., None], tiles[p][q], right[..., None]], dim=-1)
+            blocks[p][q] = torch.cat([top[..., None, :], mid, bottom[..., None, :]], dim=-2)
+    return blocks
 
 
 def exchange_frame(i_tiles: Blocks, top: torch.Tensor, bottom: torch.Tensor,
@@ -253,21 +287,29 @@ def make_sharded_kernel_matvec(
         home = previous_frame.device
 
         def exchange_matvec(u_int: torch.Tensor) -> torch.Tensor:
-            u_ext = exchange_and_extend_u(split_tiles(u_int, devices))
-            return assemble_tiles([
-                [cuda_kernels.el_matvec_extended(I, s, u, compat)
-                 for I, s, u in zip(*row)] for row in zip(blocks, scalars, u_ext)], home)
+            u_int = u_int.contiguous()
+            tiles = split_tiles(u_int, devices)
+            halos = exchange_halos(tiles)
+            out = torch.empty_like(u_int)
+            mt, nt = tiles[0][0].shape[-2:]
+            for p, q in np.ndindex(devices.shape):
+                window = out[..., p * mt : (p + 1) * mt, q * nt : (q + 1) * nt]
+                here = devices[p, q] == home  # the tile's output goes straight into out
+                y = cuda_kernels.el_matvec_tiled(blocks[p][q], scalars[p][q], tiles[p][q],
+                                                 compat, halo=halos[p][q],
+                                                 out=window if here else None)
+                if not here:
+                    window.copy_(y)
+            return out
 
         return exchange_matvec
 
     I_tiles, scalars, tx, ty = _tiled_operands(mesh, previous_frame, speed_alpha,
                                                remodelling_alpha)
-    batch = previous_frame.shape[0]
 
     def matvec(u_int: torch.Tensor) -> torch.Tensor:
-        u_tiles = to_tiles(elop.extend_interior(u_int), tx, ty).contiguous()
-        y = cuda_kernels.el_matvec_extended(I_tiles, scalars, u_tiles, compat)
-        return from_tiles(y, batch, tx, ty)
+        return cuda_kernels.el_matvec_tiled(I_tiles, scalars, u_int.contiguous(), compat,
+                                            (tx, ty))
 
     return matvec
 

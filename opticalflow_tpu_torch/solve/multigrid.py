@@ -12,8 +12,10 @@ fused CUDA kernel — and the same matvec is probed for the first coarse
 operator, so probing also runs on the kernel (with K = 27).  With the
 kernel at level 0, :func:`v_cycle` is the counterpart of both the JAX
 ``v_cycle`` and ``v_cycle_aligned`` (which its docstring calls identical).
-``gs_sweep``, ``color_masks`` and ``v_cycle_padded`` are not ported: the
-solve never calls them.
+The 4-colour block Gauss-Seidel smoother (``smoother='gs'``,
+:func:`gs_sweep` over :func:`color_masks`) is JAX's too; an unknown
+smoother name raises ``ValueError`` where JAX falls through to GS.
+``v_cycle_padded`` is not ported: there is no container layout.
 
 Precision: nothing here goes through a matrix product, so no TF32 path is
 reachable.  The 3x3 contractions of the block inverse and its application
@@ -128,8 +130,20 @@ def probe_stencil(matvec: Callable, batch: int, m: int, n: int, dtype, device) -
 
 
 # ---------------------------------------------------------------------------
-# Smoother: damped 3x3 block-Jacobi
+# Smoothers: damped 3x3 block-Jacobi, 4-colour (2x2) block Gauss-Seidel
 # ---------------------------------------------------------------------------
+
+SMOOTHERS = ("jacobi", "gs")
+
+
+@functools.lru_cache(maxsize=64)
+def color_masks(m: int, n: int, device=None) -> torch.Tensor:
+    """(4, m, n) bool: colour c = 2 (i % 2) + (j % 2) of each pixel, on
+    ``device``."""
+    ii = torch.arange(m, device=device)[:, None]
+    jj = torch.arange(n, device=device)[None, :]
+    color = (ii % 2) * 2 + (jj % 2)
+    return torch.stack([color == c for c in range(4)])
 
 
 def invert_blocks(blocks: torch.Tensor) -> torch.Tensor:
@@ -178,6 +192,18 @@ def jacobi_sweep(matvec, binv, x, b, damp: float = 0.7, sweeps: int = 2):
             x = damp * apply_blocks(binv, b)
         else:
             x = x + damp * apply_blocks(binv, b - matvec(x))
+    return x
+
+
+def gs_sweep(matvec, binv, masks, x, b, reverse: bool = False):
+    """One 4-colour block Gauss-Seidel sweep, colours 0..3 (3..0 with
+    ``reverse``): x += Binv (b - A x) on the pixels of each colour in turn;
+    ``x=None`` is a zero initial guess."""
+    if x is None:
+        x = torch.zeros_like(b)
+    for c in (range(3, -1, -1) if reverse else range(4)):
+        upd = apply_blocks(binv, b - matvec(x))
+        x = x + torch.where(masks[c], upd, 0.0)
     return x
 
 
@@ -267,26 +293,38 @@ def take(h: MGHierarchy, idx: torch.Tensor, fine_matvec: Callable) -> MGHierarch
     return MGHierarchy(tuple(levels), functools.partial(_lu_solve, lu, piv), (lu, piv))
 
 
-def _descend(h: MGHierarchy, lvl: int, b_l: torch.Tensor, n_smooth: int,
+def _descend(h: MGHierarchy, lvl: int, b_l: torch.Tensor, n_smooth: int, smoother: str,
              damp: float, sweeps: int) -> torch.Tensor:
     """Recursive V-cycle descent from level ``lvl`` (zero initial guess)."""
     if lvl == len(h.levels) - 1:
         return h.coarse_solve(b_l)
     level = h.levels[lvl]
+
+    def smooth(x, reverse):
+        if smoother == "jacobi":
+            return jacobi_sweep(level.matvec, level.binv, x, b_l, damp=damp, sweeps=sweeps)
+        masks = color_masks(*level.shape, device=b_l.device)
+        return gs_sweep(level.matvec, level.binv, masks, x, b_l, reverse=reverse)
+
     x = None
     for _ in range(n_smooth):
-        x = jacobi_sweep(level.matvec, level.binv, x, b_l, damp=damp, sweeps=sweeps)
+        x = smooth(x, reverse=False)
     r = b_l - level.matvec(x)
     nxt = h.levels[lvl + 1]
-    e = _descend(h, lvl + 1, restrict(r, nxt.shape), n_smooth, damp, sweeps)
+    e = _descend(h, lvl + 1, restrict(r, nxt.shape), n_smooth, smoother, damp, sweeps)
     x = x + prolong(e, level.shape)
     for _ in range(n_smooth):
-        x = jacobi_sweep(level.matvec, level.binv, x, b_l, damp=damp, sweeps=sweeps)
+        x = smooth(x, reverse=True)
     return x
 
 
-def v_cycle(h: MGHierarchy, b: torch.Tensor, n_smooth: int = 1, damp: float = 0.7,
-            sweeps: int = 2) -> torch.Tensor:
-    """One V(n,n)-cycle with block-Jacobi smoothing from a zero initial
-    guess — a fixed linear operator usable as a Krylov preconditioner."""
-    return _descend(h, 0, b, n_smooth, damp, sweeps)
+def v_cycle(h: MGHierarchy, b: torch.Tensor, n_smooth: int = 1, smoother: str = "jacobi",
+            damp: float = 0.7, sweeps: int = 2) -> torch.Tensor:
+    """One V(n,n)-cycle from a zero initial guess — a fixed linear operator
+    usable as a Krylov preconditioner.  ``smoother``: ``'jacobi'`` (damped
+    block-Jacobi, ``sweeps`` of ``damp`` each) or ``'gs'`` (4-colour block
+    Gauss-Seidel, colours reversed on the way up); anything else raises
+    ``ValueError``."""
+    if smoother not in SMOOTHERS:
+        raise ValueError(f"unknown smoother {smoother!r}; expected one of {SMOOTHERS}")
+    return _descend(h, 0, b, n_smooth, smoother, damp, sweeps)

@@ -4,8 +4,8 @@ this checkout's build on one card:
     python -m opticalflow_tpu_torch.utils.kernel_variants \\
         '{"stages3": {"kStages": 3}, "solve8": {"kWarpsSolve": 8}}'
 
-writes each variant's ``el_matvec.cu`` (and ``el_stencil.cuh``) under
-``_build/variants/NAME``, builds it (``cuda_kernels.build``, which prints
+writes each variant's ``el_tiles.cuh`` (and ``el_matvec.cu``,
+``el_stencil.cuh``) under ``_build/variants/NAME``, builds it (``cuda_kernels.build``, which prints
 nothing but keeps ptxas's registers and spills in ``BUILD_LOG``, shown
 here), then at each B1 shape of :mod:`kernel_ab` checks whether its output
 equals this build's bitwise and times every build on the device alone
@@ -36,19 +36,20 @@ ENTRY = "el_matvec_reduced_fused"
 
 
 def write_variant(name: str, constants: dict) -> str:
-    """The csrc directory of one variant: el_matvec.cu with each
+    """The csrc directory of one variant of B1: el_tiles.cuh with each
     ``constexpr int NAME = ...;`` of ``constants`` set to its value."""
     directory = os.path.join(ck.BUILD_DIR, "variants", name)
     os.makedirs(directory, exist_ok=True)
-    shutil.copy(os.path.join(ck.SOURCE_DIR, "el_stencil.cuh"), directory)
-    with open(os.path.join(ck.SOURCE_DIR, "el_matvec.cu")) as fh:
+    for source in ("el_stencil.cuh", "el_matvec.cu"):
+        shutil.copy(os.path.join(ck.SOURCE_DIR, source), directory)
+    with open(os.path.join(ck.SOURCE_DIR, "el_tiles.cuh")) as fh:
         source = fh.read()
     for constant, value in constants.items():
         source, count = re.subn(rf"constexpr int {constant} = [^;]+;",
                                 f"constexpr int {constant} = {int(value)};", source)
         if count != 1:
-            raise ValueError(f"el_matvec.cu has no constexpr int {constant}")
-    with open(os.path.join(directory, "el_matvec.cu"), "w") as fh:
+            raise ValueError(f"el_tiles.cuh has no constexpr int {constant}")
+    with open(os.path.join(directory, "el_tiles.cuh"), "w") as fh:
         fh.write(source)
     return directory
 
@@ -69,10 +70,10 @@ def main(argv=None) -> int:
                  if "registers" in line or "spill" in line]
         print(f"{name} {constants}: " + "; ".join(ptxas), flush=True)
     dev = torch.device("cuda", 0)
-    for entry, label, pairs, K, m in CASES:
-        if entry != ENTRY:
+    for label, pairs, K, m, _ in CASES:
+        if label != "B1":
             continue
-        I, scalars, u = _operands(pairs, K, m, False, dev)
+        I, scalars, u = _operands(pairs, K, m, dev)
 
         def call(name):
             return ck._launch(ENTRY, I, scalars, u, True, library=libraries[name])
@@ -85,7 +86,7 @@ def main(argv=None) -> int:
         for _ in range(args.rounds):
             for name in order + order[::-1]:
                 times[name].append(device_ms(lambda name=name: call(name), launches=launches))
-        b = bound_us(pairs, K, m, False)
+        b = bound_us(pairs, K, m)
         cells = []
         for name in libraries:
             med = statistics.median(times[name]) * 1e3

@@ -11,8 +11,10 @@ card and differ only by rounding (multiply-add contraction and summation
 order), a few ulps of the largest term: each field is held to
 ``max|a - b| <= 1e-5 * max|b|``; so is the hybrid matvec (plain-stencil
 kernel plus the boundary ring) against the fused kernel's plain version.
-Kernel B3 (``el_matvec_extended``) and the tiled matvec of the sharded
-solve are held to the same bound, against B3's plain version and B1's.
+Kernel B3 (``el_matvec_tiled``, and ``el_matvec_extended`` on
+pre-extended blocks) and the tiled matvec of the sharded solve are held to
+the same bound, against B3's plain versions and B1's; B3 in place and out
+of place, and on the whole field against its blocks cut out, bitwise.
 The solve on the card and the same solve on the CPU converge to the same
 system to within the refinement exit (0.1 x tol), far inside 1e-4 px;
 measured on the CPU the port and the JAX package agree to ~1e-5 px at this
@@ -129,6 +131,25 @@ def test_cuda_wrapper_raises_instead_of_falling_back(wrapper, halo):
     assert (ck.PLAIN_CALLS, ck.CORE_PLAIN_CALLS, ck.EXT_PLAIN_CALLS) == plain
 
 
+@pytest.mark.gpu
+def test_tiled_wrapper_raises_instead_of_falling_back():
+    dev = _cuda()
+    frames = torch.zeros(4, 10, 10, device=dev)
+    scalars = torch.zeros(4, 2, device=dev)
+    u = torch.zeros(1, 3, 16, 16, device=dev)
+    plain = ck.EXT_PLAIN_CALLS
+    with pytest.raises(TypeError):
+        ck.el_matvec_tiled(frames.double(), scalars, u, True, (2, 2))
+    with pytest.raises(ValueError):
+        ck.el_matvec_tiled(frames, scalars, u.transpose(-1, -2), True, (2, 2))
+    with pytest.raises(ValueError):
+        ck.el_matvec_tiled(frames, scalars.cpu(), u, True, (2, 2))
+    with pytest.raises(ValueError):  # a halo line of the wrong length
+        halo = (torch.zeros(4, 3, 10, device=dev),) * 2 + (torch.zeros(4, 3, 8, device=dev),) * 2
+        ck.el_matvec_tiled(frames, scalars, torch.zeros(4, 3, 8, 9, device=dev), True, halo=halo)
+    assert ck.EXT_PLAIN_CALLS == plain
+
+
 # (pairs, K, m, n, tx, ty): the shapes B3 takes in chip_smoke.py (the 1022²
 # interior as one tile and as 2 x 2 tiles of 511², the bench's 254², ragged)
 EXT_CASES = [(1, 1, 1022, 1022, 1, 1), (1, 27, 1022, 1022, 1, 1), (1, 1, 1022, 1022, 2, 2),
@@ -159,6 +180,97 @@ def test_extended_block_kernel_matches_plain_version(case, compat):
     assert ck.EXT_LAUNCHES == launches + 1
     _assert_fields_close(y, ck.el_matvec_extended_ref(I_t, s_t, u_t, compat))
     torch.cuda.synchronize()
+
+
+# (pairs, (m, n), K) of kernel B2's cases: the hybrid solve's 1022² (K = 1
+# and 27), widths n = 0, 1 and 3 mod 4, an interior shorter than a thread's
+# 4-row strip, ragged, and B * K above 65,535 (no grid limit since the
+# tiled kernel)
+B2_CASES = [(1, (1022, 1022), 1), (1, (1022, 1022), 27), (3, (40, 64), 1), (3, (37, 65), 3),
+            (3, (45, 67), 1), (3, (3, 70), 1), (3, (61, 190), 1), (3, (3, 3), 21846)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,shape,K", B2_CASES)
+@pytest.mark.parametrize("compat", [True, False])
+def test_plain_stencil_kernel_at_every_layout(B, shape, K, compat):
+    dev = _cuda()
+    m, n = shape
+    frames = torch.from_numpy(_frames(m, n, B)).to(dev)
+    scalars = torch.tensor((ALPHAS * B)[:B], device=dev)
+    u = torch.randn(B, K, 3, m, n, device=dev, generator=torch.Generator(dev).manual_seed(5))
+    launches = ck.CORE_LAUNCHES
+    y = ck.el_matvec_plain_core(frames, scalars, u, compat)
+    assert ck.CORE_LAUNCHES == launches + 1
+    _assert_fields_close(y, ck.el_matvec_plain_core_ref(frames, scalars, u, compat))
+    torch.cuda.synchronize()
+
+
+# (pairs, K, M, N, tx, ty) of kernel B3 on a whole field: 2 x 2 tiles of
+# 511² (K = 1 and 27), tile widths 0, 1 and 3 mod 4, tiles shorter than a
+# 4-row strip, tiles of 2 x 2, ragged, and blocks * K above 65,535
+B3_CASES = [(1, 1, 1022, 1022, 2, 2), (1, 27, 1022, 1022, 2, 2), (2, 1, 64, 128, 2, 2),
+            (2, 3, 66, 130, 2, 2), (1, 1, 6, 134, 2, 2), (3, 2, 4, 4, 2, 2),
+            (2, 1, 61, 190, 1, 1), (1, 1, 122, 190, 2, 1), (3, 21846, 4, 4, 2, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", B3_CASES)
+@pytest.mark.parametrize("compat", [True, False])
+def test_tiled_kernel_on_the_field_and_on_halo_lines(case, compat):
+    """Both operand forms of B3 against the plain version: every tile of
+    the field in one launch, and each tile alone with the halo lines the
+    seam exchange gives it, written into its window of one result (the
+    exchange route on one device); the two bitwise equal."""
+    from opticalflow_tpu_torch.parallel import mesh as pmesh
+    from opticalflow_tpu_torch.parallel import spmd
+
+    dev = _cuda()
+    pairs, K, m, n, tx, ty = case
+    frames, scalars, u = _tiled_operands(dev, pairs, K, m, n, tx, ty, seed=6)
+    I_t = spmd.to_tiles(frames, tx, ty).contiguous()
+    s_t = scalars.repeat_interleave(tx * ty, dim=0).contiguous()
+    launches = ck.EXT_LAUNCHES
+    y = ck.el_matvec_tiled(I_t, s_t, u, compat, (tx, ty))
+    assert ck.EXT_LAUNCHES == launches + 1
+    _assert_fields_close(y, ck.el_matvec_tiled_ref(I_t, s_t, u, compat, (tx, ty)))
+    mt, nt = m // tx, n // ty
+    devices = pmesh.make_mesh([dev] * (tx * ty), frames=1, tx=tx, ty=ty).devices[0]
+    tiles = spmd.split_tiles(u, devices)
+    halos = spmd.exchange_halos(tiles) if tx * ty > 1 else None
+    u_ext = spmd.to_tiles(elop.extend_interior(u), tx, ty)
+    by_tile = torch.full_like(u, float("nan"))
+    for p in range(tx):
+        for q in range(ty):
+            t = torch.arange(pairs, device=dev) * tx * ty + p * ty + q
+            halo = halos[p][q] if halos else ck.halo_lines(u_ext[t])
+            rows, cols = slice(p * mt, (p + 1) * mt), slice(q * nt, (q + 1) * nt)
+            ck.el_matvec_tiled(I_t[t].contiguous(), s_t[t].contiguous(), tiles[p][q], compat,
+                               halo=halo, out=by_tile[..., rows, cols])
+    assert ck.EXT_LAUNCHES == launches + 1 + tx * ty
+    assert torch.equal(by_tile, y)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 27])
+def test_windows_route_writes_in_place(K):
+    """B3 on the whole field into a given buffer: the buffer itself comes
+    back, bitwise equal to the kernel's out-of-place result and to its
+    outputs on the pre-extended blocks laid back into the field."""
+    from opticalflow_tpu_torch.parallel import spmd
+
+    dev = _cuda()
+    frames, scalars, u = _tiled_operands(dev, 2, K, 254, 254, 2, 2, seed=7)
+    I_t = spmd.to_tiles(frames, 2, 2).contiguous()
+    s_t = scalars.repeat_interleave(4, dim=0).contiguous()
+    buffer = torch.full_like(u, float("nan"))
+    y = ck.el_matvec_tiled(I_t, s_t, u, True, (2, 2), out=buffer)
+    assert y.data_ptr() == buffer.data_ptr()
+    assert torch.equal(buffer, ck.el_matvec_tiled(I_t, s_t, u, True, (2, 2)))
+    blocks = ck.el_matvec_extended(I_t, s_t,
+                                   spmd.to_tiles(elop.extend_interior(u), 2, 2).contiguous(), True)
+    assert torch.equal(buffer, spmd.from_tiles(blocks, 2, 2, 2))
 
 
 @pytest.mark.gpu

@@ -40,6 +40,7 @@ import torch.distributed as dist
 from jax.sharding import PartitionSpec as P
 
 from opticalflow_tpu.core.synth import make_translating_blob_movie
+from opticalflow_tpu.ops import pallas_kernels as pk
 from opticalflow_tpu.parallel import distributed as jdistributed
 from opticalflow_tpu.parallel import mesh as jmesh
 from opticalflow_tpu.parallel import pallas_spmd
@@ -172,6 +173,35 @@ def test_exchange_route_matvec_equals_the_windows_route(tiles, factory, dy_mode)
         coeffs = pair.coeffs if K == 1 else elop.with_probe_axis(pair.coeffs)
         ref = elop.el_matvec_reduced(coeffs, u)
         assert float((got - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("route", ["windows", "exchange"])
+@pytest.mark.parametrize("tiles", [(2, 2), (4, 1), (1, 4)])
+def test_tiled_kernel_matvec_routes_match_jax_pallas_spmd(monkeypatch, tiles, route):
+    """Both routes of the port's tiled matvec on kernel B3 (its plain
+    version on the CPU: the whole field in one call, or each tile and its
+    halo lines) against JAX's ``pallas_spmd.make_sharded_kernel_matvec``
+    under ``jax.shard_map`` (the v2 kernel in interpret mode), float32,
+    ``max|a - b| <= 1e-5 * max|b|`` per field (tests/test_torch_parallel.py's
+    bound: the same term order, other rounding)."""
+    monkeypatch.setattr(pk, "INTERPRET", True)
+    tx, ty = tiles
+    m = n = 16
+    rng = np.random.default_rng(13)
+    prev = (1.0 + 0.3 * rng.normal(size=(m + 2, n + 2))).astype(np.float32)
+    u = rng.normal(size=(3, m, n)).astype(np.float32)
+    a_s, a_r = np.float32(0.1), np.float32(1000.0)
+    jax_mesh = jmesh.make_mesh(jax.devices()[: tx * ty], frames=1, tx=tx, ty=ty)
+    want = np.asarray(jax.jit(pallas_spmd.make_sharded_kernel_matvec(
+        jax_mesh, jnp.asarray(prev), a_s, a_r, "compat"))(jnp.asarray(u)))
+    plain = ck.EXT_PLAIN_CALLS
+    mv = spmd.make_sharded_kernel_matvec(cpu_mesh(1, tx, ty), torch.from_numpy(prev)[None],
+                                         float(a_s), float(a_r), "compat",
+                                         as_distinct=route == "exchange")
+    got = mv(torch.from_numpy(u)[None])[0].numpy()
+    assert ck.EXT_PLAIN_CALLS - plain == (1 if route == "windows" else tx * ty)
+    for q in range(3):
+        assert np.abs(got[q] - want[q]).max() <= 1e-5 * np.abs(want[q]).max(), q
 
 
 def test_exchange_route_needs_tiles_of_two_pixels():

@@ -97,6 +97,44 @@ def test_setup_and_v_cycle_match_jax(shape):
     assert len(h.levels) == (3 if m > 8 else 1)
 
 
+@pytest.mark.parametrize("shape", [(21, 26), (8, 7), (13, 10)])
+def test_gs_smoother_v_cycle_matches_jax(shape):
+    """``smoother='gs'`` (4-colour block Gauss-Seidel, colours reversed on
+    the way up) against JAX's on the same hierarchy inputs; float64, the
+    V-cycle's tolerance above (rtol 1e-9: the dense LU is another
+    library's)."""
+    m, n = shape
+    prev, a_s, a_r, ours, theirs = _systems(m, n)
+    h = multigrid.setup(_fused(prev, a_s, a_r), elop.diag_blocks(ours.coeffs), m, n,
+                        torch.float64)
+    r = np.random.default_rng(2).standard_normal((3, 3, m, n))
+    z = multigrid.v_cycle(h, torch.from_numpy(r), smoother="gs").numpy()
+    np.testing.assert_array_equal(multigrid.color_masks(m, n).numpy(), jmg.color_masks(m, n))
+
+    @jax.jit
+    def v_cycle_one(c, rb):
+        mv = functools.partial(jelop.el_matvec_reduced, c)
+        return jmg.v_cycle(jmg.setup(mv, jelop.diag_blocks(c), m, n, jnp.float64), rb,
+                           smoother="gs")
+
+    for b, t in enumerate(theirs):
+        z_j = np.asarray(v_cycle_one(t.coeffs, jnp.asarray(r[b])))
+        np.testing.assert_allclose(z[b], z_j, rtol=1e-9, atol=1e-9 * np.abs(z_j).max())
+    # below the coarse solve GS is another operator than the default
+    # block-Jacobi (8x7 is one level: the coarse solve alone)
+    if len(h.levels) > 1:
+        assert not np.allclose(z, multigrid.v_cycle(h, torch.from_numpy(r)).numpy())
+
+
+def test_unknown_smoother_raises():
+    m, n = 8, 7
+    prev, a_s, a_r, ours, _ = _systems(m, n)
+    h = multigrid.setup(_fused(prev, a_s, a_r), elop.diag_blocks(ours.coeffs), m, n,
+                        torch.float64)
+    with pytest.raises(ValueError, match="smoother"):
+        multigrid.v_cycle(h, torch.zeros(3, 3, m, n, dtype=torch.float64), smoother="sor")
+
+
 @pytest.mark.parametrize("preconditioner", ["block_jacobi", "multigrid"])
 def test_batched_bicgstab_matches_vmapped_jax(preconditioner):
     m, n = 17, 15
