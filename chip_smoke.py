@@ -15,7 +15,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    1022x1022 interiors, and a ragged one): the fused matvec (B1) and the
    plain-stencil core (B2), each also timed on the device, warm and with
    the L2 evicted, at every shape its paths launch; and the hybrid matvec
-   (B2 plus the boundary ring) against B1's plain version;
+   (B2 plus the boundary ring) against B1's plain version; then the df32
+   refinement's kernel B4 (residual and operator mode, both dy rules)
+   against its plain versions bit for bit (``torch.equal``) at the shapes
+   the refinement launches it (11 x 254x254, 1 x 1022x1022, the sweep's
+   150 x 126x126, the command line's 1 x 510x510) and a ragged 3 x 61x190,
+   each timed on the device warm and cold beside its bound;
 4. the 256x256 path once warm and once timed: ``variational_optical_flow``
    on the bench movie (13 frames of 256x256, 12 pairs, two-pass warm
    start, alpha_s = alpha_r = 1000), with every kernel's counters set to 0
@@ -23,7 +28,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    and 11 held against the float64 assembled direct solve; then the same
    solve in the reference's TPU mode, float32 Krylov reductions
    (``high_precision_reductions=False``): 12/12 converged, B1 launched, and
-   pairs 1 and 11 within 1e-3 px of the same oracle;
+   pairs 1 and 11 within 1e-3 px of the same oracle; then the phase split
+   (``profile_solve_phases``) of pair 0's solve, with the df32
+   refinement's share;
 5. the 1024x1024 path (the large-grid branch: FGMRES(32), 4-sweep
    multigrid, refinement with FGMRES correction solves): one pair of the
    1024x1024 embryo-scale movie, first solved once in float64 as the
@@ -31,7 +38,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    defaults, once with ``matvec='hybrid'`` (B2) and once with the default
    fused matvec (B1), the counters set to 0 just before each and read just
    after, each held to EPE < 1e-3 px against the oracle; then the phase
-   split (``profile_solve_phases``) of the hybrid solve;
+   split (``profile_solve_phases``) of the hybrid and the default solve,
+   with the refinement's share;
 6. the sharded path (``parallel``): kernel B3 against its plain versions
    at the shapes the tiled matvec gives it, in each operand form (the
    whole field in one launch over its tiles: the 1022x1022 interior as one
@@ -95,21 +103,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    named as not drawn.  Phase 3 holds B1 against its plain version at the
    command line's shape (one pair of 510x510, K = 1 and 27) and times it.
 
+Every solve of phases 4-7 and 9 refines through kernel B4: each path run
+counts B4's launches beside its matvec kernel's and fails where B4 did not
+launch or any plain version ran.
+
 The second-to-last line is a JSON object with one entry per kernel: its
 launches in each path's run (``launches_by_path``) and their sum
 (``launches``); its largest error against its plain version; at its timed
 shape (B1 and B2: 11 pairs of 254x254; B3: the 1022x1022 interior as one
-tile; K = 1), its device time per launch warm (``ms``, CUDA-graph replays
+tile; K = 1; B4: the operator at 11 pairs of 254x254), its device time per
+launch warm (``ms``, CUDA-graph replays
 on operands left in L2) and cold (``cold_ms``, the L2 evicted before every
 launch), the plain version's (``plain_ms``), both per back-to-back call
 (``call_ms``, ``plain_call_ms``), the least time the card could take
 (``bound_ms``: the larger of the bytes moved over 3.35 TB/s and the
 operations over 67 TFLOP/s of float32, ``bound_by``), and ``library_ms``
-null (no single PyTorch call computes the EL stencil); the same timing keys
-at every other shape a path launches: B1 under ``at_bench_shape`` (K =
-27), ``at_large_shape``, ``at_sweep_shape`` and ``at_cli_shape``, B2 under
-``at_bench_shape`` and ``at_large_shape``, B3 under ``at_path_shape``
-(each operand form and K).  The last line is
+null (no single PyTorch call computes the EL stencil or the df32
+residual); the same timing keys at every other shape a path launches: B1
+under ``at_bench_shape`` (K = 27), ``at_large_shape``, ``at_sweep_shape``
+and ``at_cli_shape``, B2 under ``at_bench_shape`` and ``at_large_shape``,
+B3 and B4 under ``at_path_shape`` (B3: each operand form and K; B4: each
+mode and shape).  The last line is
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
 
@@ -138,6 +152,11 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # float32 operations per output pixel of el_stencil.cuh, counted from its
 # source: 44 to rebuild the coefficients, 24 + 24 + 18 for the three equations
 FLOPS_PER_PIXEL = 110
+# float32 operations per interior pixel of kernel B4 (csrc/el_df32.cu),
+# counted from its source: 43 terms of 29 (two_prod 17, the small terms 4,
+# two_sum 6, the tail 2; negations are free) and the rounding of each of the
+# three channels' pairs
+DF32_FLOPS_PER_PIXEL = 43 * 29 + 3
 # phase 7: cells of the 15 x 20 grid held against the serial path, and the
 # bound on |batched - serial| of their speed and remodelling means,
 # relative to the field's scale, max(|mean|, standard deviation).  Both
@@ -244,11 +263,12 @@ def bound(N, K, m, n, lines=False):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_kernel(entry, label, kernel_fn, plain_fn, args, shape, card):
+def time_kernel(entry, label, kernel_fn, plain_fn, args, shape, card, bounds=None):
     """Fill ``entry`` with the timing keys of a kernel at one shape: device
     times of the kernel warm (``ms``: its operands left in L2 where they
     fit) and cold (``cold_ms``: L2 evicted before every launch), of its
-    plain version, per-call times of both, and its bound."""
+    plain version, per-call times of both, and its bound (``bounds``, or
+    :func:`bound` of ``shape``)."""
     from opticalflow_tpu_torch.utils.cuda_timing import call_ms, device_ms
 
     entry["ms"] = device_ms(lambda: kernel_fn(*args))
@@ -256,7 +276,7 @@ def time_kernel(entry, label, kernel_fn, plain_fn, args, shape, card):
     entry["plain_ms"] = device_ms(lambda: plain_fn(*args), launches=10)
     entry["call_ms"] = call_ms(lambda: kernel_fn(*args), 50)
     entry["plain_call_ms"] = call_ms(lambda: plain_fn(*args), 10)
-    entry["bound_ms"], entry["bound_by"] = bound(*shape)
+    entry["bound_ms"], entry["bound_by"] = bounds or bound(*shape)
     entry["library_ms"] = None  # no single PyTorch call computes the EL stencil
     print(f"{label} timed at N={shape[0]} K={shape[1]} {shape[2]}x{shape[3]}"
           f"{' with halo lines' if shape[4:] and shape[4] else ''}: device "
@@ -308,8 +328,10 @@ def _normalised(movie, dev):
     return I, torch.stack([ALPHA / scale**2, torch.full_like(scale, ALPHA)], dim=-1)
 
 
-# wrapper (its plain version is the wrapper's name + "_ref"): counter label,
-# source, TPU kernel it replaces
+# wrapper (its plain version is the wrapper's name + "_ref"; for B4 the
+# kernel, whose wrappers are el_residual_df32 and el_matvec_df32): counter
+# label, source, TPU kernel it replaces (B4: no Pallas kernel, the JAX
+# function that XLA fuses)
 KERNELS = {
     "el_matvec_reduced_fused": ("B1", "opticalflow_tpu_torch/csrc/el_matvec.cu",
                                 "opticalflow_tpu/ops/pallas_kernels.py:398"),
@@ -317,6 +339,8 @@ KERNELS = {
                              "opticalflow_tpu/ops/pallas_kernels.py:685"),
     "el_matvec_extended": ("B3", "opticalflow_tpu_torch/csrc/el_matvec_ext.cu",
                            "opticalflow_tpu/ops/pallas_kernels.py:70"),
+    "el_df32": ("B4", "opticalflow_tpu_torch/csrc/el_df32.cu",
+                "opticalflow_tpu/ops/elop.py:519"),
 }
 
 
@@ -524,12 +548,100 @@ def check_extended_kernel(movie, large, dev, card, entry):
                                          "windows route")
 
 
+def bound_df32(B, m, n, P, residual):
+    """(bound_ms, bound_by) of one B4 call on B pairs of (m, n): the P
+    coefficient planes, the per-pair scalars and x read once, y written once,
+    and in residual mode x_lo and the two rhs planes read too, over the
+    card's memory rate; its operations over its float32 rate."""
+    planes = P + 3 + 3 + (9 if residual else 0)
+    nbytes = 4 * (B * m * n * planes + 6 * B)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = DF32_FLOPS_PER_PIXEL * B * m * n / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _df32_pairs(prev, cur, alphas, dy_mode, dev):
+    """B4's operands as the refinement packs them: the df32 data of raw
+    frames (B, m+2, n+2) and raw per-pair (alpha_s, alpha_r) (B, 2)."""
+    from opticalflow_tpu_torch.ops import cuda_kernels as ck
+    from opticalflow_tpu_torch.ops import elop
+
+    prev = torch.as_tensor(prev, dtype=torch.float32).to(dev)
+    cur = torch.as_tensor(cur, dtype=torch.float32).to(dev)
+    alphas = torch.as_tensor(alphas, dtype=torch.float32).to(dev)
+    scale = prev.flatten(1).amax(1)
+    return ck.pack_df32(elop.compute_frame_pair_data_df(prev, cur, alphas[:, 0], alphas[:, 1],
+                                                        dy_mode, scale))
+
+
+def check_df32_kernel(movie, large, stack, dev, card, entry):
+    """Phase 3's B4: the df32 residual and operator against their plain
+    versions, bit for bit (``torch.equal``, and the bits compared too), in
+    both modes and both dy rules at the shapes the refinement launches it
+    (the bench's 11 pairs of 254x254, the 1024x1024 pair, the sweep's chunk
+    of 150 cells of 126x126, the command line's 510x510 pair) and a ragged
+    3 x 61x190; each shape timed in compat mode, both kernel modes, warm
+    and cold, with its bound.  Fills B4's JSON entry (the operator at the
+    bench's shape; every other shape and mode under ``at_path_shape``)."""
+    from opticalflow_tpu_torch.ops import cuda_kernels as ck
+    from opticalflow_tpu_torch.utils.sweep_chunks import (REMODELLING_ALPHAS, SPEED_ALPHAS,
+                                                          sweep_movie)
+
+    n_sweep = sweep_chunk()
+    sweep = sweep_movie() + 1e-4
+    grid = np.array([[a, b] for a in SPEED_ALPHAS for b in REMODELLING_ALPHAS][:n_sweep])
+    bench = np.full((11, 2), ALPHA)
+    cases = [  # (name, previous frames, current frames, raw alphas)
+        ("11 pairs 254x254 (bench)", movie[1:12], movie[2:13], bench),
+        ("1 pair 1022x1022 (1024)", large[:1], large[1:2], bench[:1]),
+        (f"{n_sweep} cells 126x126 (sweep)", np.repeat(sweep[:1], n_sweep, axis=0),
+         np.repeat(sweep[1:], n_sweep, axis=0), grid),
+        ("1 pair 510x510 (CLI)", stack[:1], stack[1:2], bench[:1]),
+        ("3 pairs 61x190 ragged", movie[:3, :63, :192], movie[1:4, :63, :192], bench[:3]),
+    ]
+    gen = torch.Generator(dev).manual_seed(3)
+    for name, prev, cur, alphas in cases:
+        for dy_mode in ("compat", "fixed"):
+            ops = _df32_pairs(prev, cur, alphas, dy_mode, dev)
+            B, P, m, n = ops.planes.shape
+            x_hi = torch.randn((B, 3, m, n), device=dev, generator=gen)
+            x_lo = x_hi * 1e-8 * torch.randn((B, 3, m, n), device=dev, generator=gen)
+            modes = {"residual": (ck.el_residual_df32, ck.el_residual_df32_ref,
+                                  (ops, x_hi, x_lo)),
+                     "operator": (ck.el_matvec_df32, ck.el_matvec_df32_ref, (ops, x_hi))}
+            for mode, (kernel_fn, plain_fn, args) in modes.items():
+                y = kernel_fn(*args)
+                y_ref = plain_fn(*args)
+                torch.cuda.synchronize()
+                same = torch.equal(y, y_ref)
+                bits = torch.equal(y.view(torch.int32), y_ref.view(torch.int32))
+                err = (y - y_ref).abs().max().item()
+                print(f"B4 {mode} {name} {dy_mode} (P = {P}): torch.equal to its plain version "
+                      f"{same}, bits equal {bits}, max |kernel - plain| {err:.3e}  [{card}]",
+                      flush=True)
+                if not same:
+                    raise AssertionError(f"B4 {mode} differs from its plain version: {name} "
+                                         f"{dy_mode}")
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                del y, y_ref
+                if dy_mode != "compat":
+                    continue
+                bounds = bound_df32(B, m, n, P, mode == "residual")
+                if mode == "operator" and "bench" in name:
+                    timed = entry
+                else:
+                    timed = entry.setdefault("at_path_shape", {})[f"{mode} N={B} {m}x{n}"] = {}
+                time_kernel(timed, f"B4 {mode} ({name})", kernel_fn, plain_fn, args,
+                            (B, 1, m, n), card, bounds)
+            del ops, x_hi, x_lo, modes
+
+
 def reset_counters():
     from opticalflow_tpu_torch.ops import cuda_kernels as ck
     from opticalflow_tpu_torch.utils import observability
 
     ck.LAUNCHES = ck.PLAIN_CALLS = ck.CORE_LAUNCHES = ck.CORE_PLAIN_CALLS = 0
-    ck.EXT_LAUNCHES = ck.EXT_PLAIN_CALLS = 0
+    ck.EXT_LAUNCHES = ck.EXT_PLAIN_CALLS = ck.DF_LAUNCHES = ck.DF_PLAIN_CALLS = 0
     observability.reset()
     torch.cuda.synchronize()
 
@@ -540,16 +652,16 @@ def read_counters():
 
     return {"B1": ck.LAUNCHES, "B1 plain": ck.PLAIN_CALLS, "B2": ck.CORE_LAUNCHES,
             "B2 plain": ck.CORE_PLAIN_CALLS, "B3": ck.EXT_LAUNCHES,
-            "B3 plain": ck.EXT_PLAIN_CALLS,
+            "B3 plain": ck.EXT_PLAIN_CALLS, "B4": ck.DF_LAUNCHES, "B4 plain": ck.DF_PLAIN_CALLS,
             "host syncs": observability.counts().get("krylov/host_syncs", 0)}
 
 
 def bypassed(counts, kernel):
-    """Whether a path run missed its kernel or ran another kernel or any
-    plain version."""
+    """Whether a path run missed its matvec kernel or the refinement's B4,
+    or ran another matvec kernel or any plain version."""
     others = [k for k in ("B1", "B2", "B3") if k != kernel]
-    plains = [f"{k} plain" for k in ("B1", "B2", "B3")]
-    return counts[kernel] == 0 or any(counts[k] for k in others + plains)
+    plains = [f"{k} plain" for k in ("B1", "B2", "B3", "B4")]
+    return counts[kernel] == 0 or counts["B4"] == 0 or any(counts[k] for k in others + plains)
 
 
 def large_grid_path(large, dev, card):
@@ -594,11 +706,19 @@ def large_grid_path(large, dev, card):
             raise AssertionError(f"1024 matvec={matvec!r}: EPE {e} px")
         runs[f"{LARGE_DIM}x{LARGE_DIM} {matvec}"] = counts
 
-    phases = profile_solve_phases(movie_t[0], movie_t[1], ALPHA, ALPHA,
-                                  solver=SolverConfig(matvec="hybrid"), reps=1)
-    print("1024 hybrid phases (s): " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
-          + f"  [{card}]", flush=True)
+    for matvec in ("hybrid", "auto"):
+        print_phases(f"1024 {matvec}", profile_solve_phases(
+            movie_t[0], movie_t[1], ALPHA, ALPHA, solver=SolverConfig(matvec=matvec), reps=1),
+            card)
     return runs, oracle
+
+
+def print_phases(label, phases, card):
+    """One line of ``profile_solve_phases``' split (seconds) and the df32
+    refinement's share of the solve."""
+    print(f"{label} phases (s): " + ", ".join(f"{k} {v:.4f}" for k, v in phases.items())
+          + f"; refinement {phases['refinement'] / phases['total']:.3f} of the total  [{card}]",
+          flush=True)
 
 
 def _solve_to_host(movie, mesh, as_distinct=False, solver=None, **alphas):
@@ -832,7 +952,8 @@ def sweep_path(card):
     print(f"sweep path: {n} solves of 128x128 in {wall:.3f} s = {n / wall:.3f} solves/s "
           f"(warm-up 2x2 grid {warm_s:.3f} s), {len(chunk_its)} chunks of <= {sweep_chunk()} "
           f"solves, converged {int(conv.sum())}/{n}, chunk max iterations {chunk_its}, chunk "
-          f"seconds max {chunk_s['max']:.3f}, B1 launches {counts['B1']}, plain calls "
+          f"seconds max {chunk_s['max']:.3f}, B1 launches {counts['B1']}, B4 launches "
+          f"{counts['B4']}, plain calls "
           f"{counts['B1 plain']}, host syncs {counts['host syncs']}  [{card}]", flush=True)
     print("  converged cells (rows: alpha_s, columns: alpha_r):\n" + "\n".join(
         "  " + "".join(str(int(c)) for c in row) for row in conv), flush=True)
@@ -1028,7 +1149,8 @@ def cli_path(stack, dev, card):
               + (f"{spans['drivers/plot']:.3f}" if whole else "not drawn")
               + f" s; {n_pairs / solve_s:.3f} pairs/s (solve), {n_pairs / wall:.3f} pairs/s "
               f"(command); iterations median {int(np.median(its))} max {int(its.max())}, "
-              f"converged {int(conv.sum())}/{conv.size}, B1 launches {counts['B1']} "
+              f"converged {int(conv.sum())}/{conv.size}, B4 launches {counts['B4']}, B1 "
+              f"launches {counts['B1']} "
               f"({counts['B1'] / n_pairs:.1f} per pair), plain calls {counts['B1 plain']}, host "
               f"syncs {counts['host syncs']}  [{card}]", flush=True)
         if conv.shape != (n_pairs,) or not conv.all():
@@ -1170,6 +1292,7 @@ def main():
     stack = counts_movie(CLI_FRAMES, CLI_DIM)
     entries = check_kernels(movie, large, stack[:1].astype(np.float32), dev, smi)
     check_extended_kernel(movie, large, dev, smi, entries["el_matvec_extended"])
+    check_df32_kernel(movie, large, stack[:2].astype(np.float32), dev, smi, entries["el_df32"])
 
     # 4. the main path
     movie_t = torch.from_numpy(movie).to(dev)
@@ -1191,7 +1314,7 @@ def main():
           f"{warm_s:.3f} s) = {n_pairs / solve_s:.3f} pairs/s [{smi}]")
     print(f"  iterations per pair {its.tolist()}, converged {int(conv.sum())}/{conv.size}, "
           f"el_matvec launches {launches} ({launches / n_pairs:.1f} per pair), plain-version "
-          f"calls {plain}, host syncs {syncs}", flush=True)
+          f"calls {plain}, host syncs {syncs}, counts {counts}", flush=True)
     if conv.shape != (n_pairs,) or not conv.all():
         raise AssertionError(f"not every pair converged: {conv.tolist()}")
     if bypassed(counts, "B1"):
@@ -1206,6 +1329,10 @@ def main():
         if not e < EPE_LIMIT_PX:
             raise AssertionError(f"pair {k}: EPE {e} px")
     f32_reductions_run(movie_t, movie, kw, smi)
+    from opticalflow_tpu_torch.flow.variational import profile_solve_phases
+
+    print_phases(f"{DIM} pair 0", profile_solve_phases(movie_t[0], movie_t[1], ALPHA, ALPHA,
+                                                       reps=2), smi)
 
     # 5. the large-grid path
     large_runs, oracle = large_grid_path(large, dev, smi)

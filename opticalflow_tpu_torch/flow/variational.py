@@ -11,6 +11,9 @@ multigrid setup — is a hand-written CUDA kernel on CUDA tensors
 (ops.cuda_kernels): the fused matvec by default, the plain-stencil core
 plus the boundary ring with ``matvec='hybrid'``, or the tiled matvec of a
 mesh (parallel.spmd) that the sharded solve passes as ``matvec_factory``.
+The refinement's df32 residual and correction operator are kernel B4 on
+CUDA tensors (its operands packed once per solve), bit for bit the plain
+``elop.el_residual_df`` / ``el_matvec_df``.
 
 Where the JAX package uses ``vmap`` the port carries a leading pair axis,
 and where it uses ``lax.scan`` / ``lax.while_loop`` the port loops in
@@ -259,8 +262,9 @@ def solve_frame_pair(
     iterations = res.iterations
     if refinement_restarts > 0:
         with _phase(phase_timer, "refinement"):
-            dfd = elop.compute_frame_pair_data_df(
-                raw_prev, raw_cur, raw_speed_alpha, a_r, dy_mode, scale)
+            # the df32 system data, packed once for kernel B4
+            ops = cuda_kernels.pack_df32(elop.compute_frame_pair_data_df(
+                raw_prev, raw_cur, raw_speed_alpha, a_r, dy_mode, scale))
             eff_rtol = max(rtol, tol_floor * torch.finfo(dtype).eps)
             tol_main = eff_rtol * _norms(b_red)
             if refinement_exit_factor is None:
@@ -269,12 +273,12 @@ def solve_frame_pair(
 
             x_hi = res.x
             x_lo = torch.zeros_like(x_hi)
-            r_hi = elop.el_residual_df(dfd, x_hi, x_lo)
+            r_hi = cuda_kernels.el_residual_df32(ops, x_hi, x_lo)
             r_norm = _norms(r_hi)
             r_prev = torch.full_like(r_norm, float("inf"))
             step = torch.zeros(B, dtype=torch.int32, device=r_norm.device)
             # the df32 data, matvec and preconditioner of the active pairs
-            subset = (tuple(range(B)), dfd, precond)
+            subset = (tuple(range(B)), ops, precond)
             while True:
                 active = ((step < refinement_restarts) & (r_norm > exit_tol)
                           & (r_norm < 0.999 * r_prev))
@@ -284,14 +288,15 @@ def solve_frame_pair(
                     break
                 idx = torch.tensor(pairs, device=x_hi.device)
                 if pairs != subset[0]:
-                    subset = (pairs, _take(dfd, idx), precond_of(idx))
-                _, dfd_a, precond_a = subset
-                res_c = solve(functools.partial(elop.el_matvec_df, dfd_a), r_hi[idx],
+                    subset = (pairs, _take(ops, idx), precond_of(idx))
+                _, ops_a, precond_a = subset
+                res_c = solve(lambda u: cuda_kernels.el_matvec_df32(ops_a, u.contiguous()),
+                              r_hi[idx],
                               x0=torch.zeros_like(r_hi[idx]), precond=precond_a,
                               rtol=refinement_rtol)
                 s_, e = df32.two_sum(x_hi[idx], res_c.x)
                 x_hi_n, x_lo_n = df32.fast_two_sum(s_, x_lo[idx] + e)
-                r_hi_n = elop.el_residual_df(dfd_a, x_hi_n, x_lo_n)
+                r_hi_n = cuda_kernels.el_residual_df32(ops_a, x_hi_n, x_lo_n)
                 r_new = _norms(r_hi_n)
                 take = r_new < r_norm[idx]
                 t4 = take[:, None, None, None]

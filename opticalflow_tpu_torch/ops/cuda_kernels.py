@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the port, their builds, wrappers and plain
 versions.
 
-Three kernels, all on the stencil of ``csrc/el_stencil.cuh``:
+Four kernels, three of them on the stencil of ``csrc/el_stencil.cuh``:
 
 * the fused reduced Euler-Lagrange matvec (``csrc/el_matvec.cu``), the
   Hopper counterpart of the TPU kernel
@@ -24,10 +24,20 @@ Three kernels, all on the stencil of ``csrc/el_stencil.cuh``:
   pre-extended blocks, :func:`el_matvec_extended` (the same kernel, the
   block cut into its interior and halo lines) and its plain version
   :func:`el_matvec_extended_ref`; counters ``EXT_LAUNCHES`` and
-  ``EXT_PLAIN_CALLS``.
+  ``EXT_PLAIN_CALLS``;
+* the df32 residual and operator of the refinement (``csrc/el_df32.cu``,
+  B4), which has no Pallas counterpart: it replaces XLA's fusion of
+  ``opticalflow_tpu/ops/elop.py::el_residual_df`` / ``el_matvec_df``.  Its
+  operands are packed once per solve (:func:`pack_df32`); wrappers
+  :func:`el_residual_df32` and :func:`el_matvec_df32`, plain versions
+  :func:`el_residual_df32_ref` and :func:`el_matvec_df32_ref` (the
+  ``elop`` functions on views into the packed tensors), counters
+  ``DF_LAUNCHES`` and ``DF_PLAIN_CALLS``.  It is built with
+  ``-fmad=false`` and equals its plain version bit for bit.
 
-All three kernels are instances of one tiled kernel (``csrc/el_tiles.cuh``)
-with their staging rule as its parameter; none has a limit on B * K.
+The three matvec kernels are instances of one tiled kernel
+(``csrc/el_tiles.cuh``) with their staging rule as its parameter; none has
+a limit on B * K.
 
 On CPU tensors a wrapper runs its plain version; on CUDA tensors it checks
 device, dtype, shape and layout, launches its kernel on the current
@@ -40,7 +50,8 @@ holds a lock too: the kernels set their shared-memory limit and cache
 their resident blocks per device on that launch.  :func:`load_library` builds each source of ``ENTRY_POINTS`` with
 ``nvcc`` on first use, one process per source, all started together, into
 ``_build/`` beside the package (plain C entry points loaded with ctypes),
-keyed by a hash of every source and header under ``csrc/`` and the flags.
+each keyed by a hash of every source and header under ``csrc/`` and of its
+flags.
 """
 
 from __future__ import annotations
@@ -53,7 +64,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -67,6 +78,8 @@ CORE_LAUNCHES = 0  # kernel launches by el_matvec_plain_core
 CORE_PLAIN_CALLS = 0  # calls of the plain version el_matvec_plain_core_ref
 EXT_LAUNCHES = 0  # kernel launches by el_matvec_tiled (el_matvec_extended included)
 EXT_PLAIN_CALLS = 0  # calls of the plain versions el_matvec_tiled_ref, el_matvec_extended_ref
+DF_LAUNCHES = 0  # kernel launches by el_residual_df32 and el_matvec_df32
+DF_PLAIN_CALLS = 0  # calls of the plain versions el_residual_df32_ref, el_matvec_df32_ref
 BUILD_SECONDS = None  # wall time of this process's nvcc builds, if it built
 BUILD_LOG = ""  # nvcc's output of those builds (-Xptxas -v: registers, smem)
 
@@ -84,10 +97,16 @@ _PAIRS_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _TILES_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                + [ctypes.c_longlong, ctypes.c_int] * 2 + [ctypes.c_longlong] * 4
                + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-# C entry point of each source and its argument types
-ENTRY_POINTS = {"el_matvec.cu": ("el_matvec_reduced_fused", _PAIRS_ARGS),
-                "el_matvec_plain.cu": ("el_matvec_plain_core", _PAIRS_ARGS),
-                "el_matvec_ext.cu": ("el_matvec_tiled", _TILES_ARGS)}
+# B4 takes (planes, scalars, rhs_hi, rhs_lo, x_hi, x_lo, out, B, P, m, n,
+# residual, stream)
+_DF32_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# C entry point of each source, its argument types and the flags it adds to
+# NVCC_FLAGS: B4's error-free transforms are exact only if no product and
+# sum are contracted into a fused multiply-add
+ENTRY_POINTS = {"el_matvec.cu": ("el_matvec_reduced_fused", _PAIRS_ARGS, ()),
+                "el_matvec_plain.cu": ("el_matvec_plain_core", _PAIRS_ARGS, ()),
+                "el_matvec_ext.cu": ("el_matvec_tiled", _TILES_ARGS, ()),
+                "el_df32.cu": ("el_df32", _DF32_ARGS, ("-fmad=false",))}
 
 _FUNCTIONS: Dict[str, ctypes._CFuncPtr] = {}
 _LOAD_LOCK = threading.Lock()  # one build, however many threads load at once
@@ -117,27 +136,31 @@ def build(source_dir: str = SOURCE_DIR,
           entry_points: Optional[Dict[str, tuple]] = None) -> Dict[str, ctypes._CFuncPtr]:
     """Build (once per version of the sources under ``source_dir``) and load
     each source of ``entry_points`` (``ENTRY_POINTS`` when ``None``: source
-    -> (C entry point, argument types)) that ``source_dir`` holds into
-    ``BUILD_DIR``; returns the C entry points by name.  Another version's
-    ``csrc`` builds beside this one's (the libraries are keyed by the
-    sources' hash).  Sets ``BUILD_SECONDS`` and ``BUILD_LOG`` when it
-    compiles."""
+    -> (C entry point, argument types, flags added to ``NVCC_FLAGS``)) that
+    ``source_dir`` holds into ``BUILD_DIR``; returns the C entry points by
+    name.  Another version's ``csrc`` builds beside this one's (each library
+    is keyed by a hash of the sources and of its flags).  Sets
+    ``BUILD_SECONDS`` and ``BUILD_LOG`` when it compiles."""
     global BUILD_SECONDS, BUILD_LOG
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(glob.glob(os.path.join(source_dir, "*.cu*"))):  # headers too
         with open(path, "rb") as fh:
             h.update(os.path.basename(path).encode() + b"\0" + fh.read())
-    digest = h.hexdigest()[:16]
     entry_points = {src: entry for src, entry in (entry_points or ENTRY_POINTS).items()
                     if os.path.exists(os.path.join(source_dir, src))}
-    libs = {src: os.path.join(BUILD_DIR, f"lib{src[:-3]}_{digest}.so") for src in entry_points}
+
+    def digest(flags) -> str:
+        return hashlib.sha256(h.digest() + " ".join(flags).encode()).hexdigest()[:16]
+
+    libs = {src: os.path.join(BUILD_DIR, f"lib{src[:-3]}_{digest(flags)}.so")
+            for src, (_, _, flags) in entry_points.items()}
     missing = [src for src, lib in libs.items() if not os.path.exists(lib)]
     if missing:
         os.makedirs(BUILD_DIR, exist_ok=True)
         t0 = time.perf_counter()
         procs = {src: subprocess.Popen(  # one nvcc per source, all at once
-            [_nvcc(), *NVCC_FLAGS, "-o", f"{libs[src]}.{os.getpid()}.tmp",
-             os.path.join(source_dir, src)],
+            [_nvcc(), *NVCC_FLAGS, *entry_points[src][2], "-o",
+             f"{libs[src]}.{os.getpid()}.tmp", os.path.join(source_dir, src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for src in missing}
         logs = {src: proc.communicate()[0] for src, proc in procs.items()}
         BUILD_SECONDS = time.perf_counter() - t0
@@ -148,7 +171,7 @@ def build(source_dir: str = SOURCE_DIR,
         for src in missing:
             os.replace(f"{libs[src]}.{os.getpid()}.tmp", libs[src])
     functions = {}
-    for src, (entry, argtypes) in entry_points.items():
+    for src, (entry, argtypes, _) in entry_points.items():
         fn = getattr(ctypes.CDLL(libs[src]), entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -489,3 +512,127 @@ def el_matvec_extended(I: torch.Tensor, scalars: torch.Tensor, u: torch.Tensor,
     _check_shapes(I, scalars, u, extended=True)
     _check_contiguous(u=u)
     return el_matvec_tiled(I, scalars, u[..., 1:-1, 1:-1], compat, halo=halo_lines(u))
+
+
+# ---------------------------------------------------------------------------
+# Kernel B4: the df32 residual and operator of the refinement.
+# ---------------------------------------------------------------------------
+
+# ELPairDataDF's coefficient planes in B4's order (dIdy only in fixed mode)
+DF32_PLANES = ("diag_x", "diag_y", "cross", "adv_xm", "adv_xp", "adv_ym", "adv_yp", "gx", "gy",
+               "quart", "half_I", "dIdx", "dIdy")
+DF32_SCALARS = ("a_s", "a_r", "gD")
+
+
+class DF32Operands(NamedTuple):
+    """The df32 system data of a batch of pairs as kernel B4 reads it,
+    packed once per solve by :func:`pack_df32`; every field has the pairs
+    on its first axis, so a subset of pairs is an ``index_select`` of each
+    (``flow.variational._take``)."""
+
+    planes: torch.Tensor  # (B, P, m, n): hi, lo of each of DF32_PLANES; P = 24 compat, 26 fixed
+    scalars: torch.Tensor  # (B, 6): hi, lo of each of DF32_SCALARS
+    rhs_hi: torch.Tensor  # (B, 3, m, n)
+    rhs_lo: torch.Tensor
+
+
+def pack_df32(dfd: elop.ELPairDataDF) -> DF32Operands:
+    """Pack ``elop.compute_frame_pair_data_df``'s (B, m, n) pairs and (B, 1,
+    1) per-pair pairs into contiguous tensors.  In compat mode, where
+    ``dfd.dIdy`` is ``dfd.dIdx``, the dIdy planes are not stored (P = 24)."""
+    names = DF32_PLANES[:-1] if dfd.dIdy is dfd.dIdx else DF32_PLANES
+    planes = torch.stack([t for name in names for t in getattr(dfd, name)], dim=1)
+    B = planes.shape[0]
+    scalars = torch.stack([t.reshape(B) for name in DF32_SCALARS for t in getattr(dfd, name)],
+                          dim=1)
+    return DF32Operands(planes, scalars, dfd.rhs_hi.contiguous(), dfd.rhs_lo.contiguous())
+
+
+def _df32_views(ops: DF32Operands) -> elop.ELPairDataDF:
+    """``ops`` as the ``ELPairDataDF`` the plain versions take: views into
+    the packed tensors, no copy."""
+    names = DF32_PLANES[: ops.planes.shape[1] // 2]
+    data = {name: (ops.planes[:, 2 * k], ops.planes[:, 2 * k + 1]) for k, name in enumerate(names)}
+    data.setdefault("dIdy", data["dIdx"])
+    for k, name in enumerate(DF32_SCALARS):
+        data[name] = (ops.scalars[:, 2 * k, None, None], ops.scalars[:, 2 * k + 1, None, None])
+    return elop.ELPairDataDF(**data, rhs_hi=ops.rhs_hi, rhs_lo=ops.rhs_lo)
+
+
+def _check_df32(ops: DF32Operands, *fields: torch.Tensor):
+    """(B, P, m, n) of a B4 call, or ValueError."""
+    if ops.planes.dim() != 4 or ops.planes.shape[1] not in (24, 26):
+        raise ValueError(f"planes must be (B, 24 or 26, m, n), got {tuple(ops.planes.shape)}")
+    B, P, m, n = ops.planes.shape
+    if m < 2 or n < 2:
+        raise ValueError(f"the interior must be at least 2x2, got {m}x{n}")
+    if tuple(ops.scalars.shape) != (B, 6):
+        raise ValueError(f"scalars must be {(B, 6)}, got {tuple(ops.scalars.shape)}")
+    for name, t in (("rhs_hi", ops.rhs_hi), ("rhs_lo", ops.rhs_lo)) + tuple(
+            (f"x ({k})", x) for k, x in enumerate(fields)):
+        if tuple(t.shape) != (B, 3, m, n):
+            raise ValueError(f"{name} must be {(B, 3, m, n)}, got {tuple(t.shape)}")
+    return B, P, m, n
+
+
+def _launch_df32(ops: DF32Operands, x_hi: torch.Tensor, x_lo: Optional[torch.Tensor]):
+    """Check the operands of a B4 call and launch it on the current stream
+    (residual mode with ``x_lo``, operator mode without); raises on anything
+    the kernel does not take and on a failed launch."""
+    fields = (x_hi,) if x_lo is None else (x_hi, x_lo)
+    B, P, m, n = _check_df32(ops, *fields)
+    tensors = dict(planes=ops.planes, scalars=ops.scalars, x_hi=x_hi)
+    if x_lo is not None:
+        tensors.update(rhs_hi=ops.rhs_hi, rhs_lo=ops.rhs_lo, x_lo=x_lo)
+    _check_operands(x_hi.device, **tensors)
+    _check_contiguous(**tensors)
+    out = x_hi.new_empty(x_hi.shape)
+    ptr = {name: t.data_ptr() for name, t in tensors.items()}
+    rc = _call(load_library()["el_df32"], x_hi.device, 1,
+               (ptr["planes"], ptr["scalars"], ptr.get("rhs_hi"), ptr.get("rhs_lo"),
+                ptr["x_hi"], ptr.get("x_lo"), out.data_ptr(), B, P, m, n,
+                int(x_lo is not None)))
+    if rc != 0:
+        raise RuntimeError(f"el_df32 kernel launch failed: cudaError {rc}")
+    return out
+
+
+def el_residual_df32_ref(ops: DF32Operands, x_hi: torch.Tensor,
+                         x_lo: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel B4 in residual mode:
+    ``elop.el_residual_df`` on views into ``ops``, ``b - A (x_hi + x_lo)``
+    of the df32 system for (B, 3, m, n) fields."""
+    _check_df32(ops, x_hi, x_lo)
+    _count("DF_PLAIN_CALLS")
+    return elop.el_residual_df(_df32_views(ops), x_hi, x_lo)
+
+
+def el_residual_df32(ops: DF32Operands, x_hi: torch.Tensor, x_lo: torch.Tensor) -> torch.Tensor:
+    """``b - A (x_hi + x_lo)`` of :func:`el_residual_df32_ref`: CUDA tensors
+    go through kernel B4 (float32, contiguous), bitwise equal to the plain
+    version; CPU tensors through the plain version."""
+    if _on_cpu(*ops, x_hi, x_lo):
+        return el_residual_df32_ref(ops, x_hi, x_lo)
+    out = _launch_df32(ops, x_hi, x_lo)
+    _count("DF_LAUNCHES")
+    return out
+
+
+def el_matvec_df32_ref(ops: DF32Operands, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel B4 in operator mode:
+    ``elop.el_matvec_df`` on views into ``ops``, ``A x`` against the df32
+    system data for (B, 3, m, n) fields."""
+    _check_df32(ops, x)
+    _count("DF_PLAIN_CALLS")
+    return elop.el_matvec_df(_df32_views(ops), x)
+
+
+def el_matvec_df32(ops: DF32Operands, x: torch.Tensor) -> torch.Tensor:
+    """``A x`` of :func:`el_matvec_df32_ref`: CUDA tensors go through kernel
+    B4 (float32, contiguous), bitwise equal to the plain version; CPU
+    tensors through the plain version."""
+    if _on_cpu(ops.planes, ops.scalars, x):
+        return el_matvec_df32_ref(ops, x)
+    out = _launch_df32(ops, x, None)
+    _count("DF_LAUNCHES")
+    return out

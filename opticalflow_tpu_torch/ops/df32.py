@@ -5,7 +5,10 @@ transforms (Dekker 1971, Knuth TAOCP v2) and head/tail pair arithmetic.
 They are exact only if every operation is rounded on its own, which eager
 PyTorch guarantees (one kernel per operation, no reassociation, no
 contraction into fused multiply-adds).  Do not ``torch.compile`` these or
-fuse them into a kernel without keeping that property.
+fuse them into a kernel without keeping that property.  The one place they
+are fused is kernel B4 (``csrc/el_df32.cu``, the refinement's residual and
+operator on the card), whose source is built with ``-fmad=false``, no fast
+math and no flush-to-zero, and equals these functions bit for bit.
 
 A value is carried as a pair ``(hi, lo)`` with |lo| <= ulp(hi)/2; the split
 constant follows the dtype, so float64 inputs give double-double.

@@ -334,7 +334,11 @@ def block_jacobi_inverse_apply_interior(coeffs: ELCoefficients, r: torch.Tensor)
 # smaller) and f32-computed coefficient planes perturb the system, so the
 # refinement residual is evaluated against system data computed in
 # compensated pair arithmetic (ops.df32).  Planes are (..., m, n) pairs;
-# per-pair scalars are (..., 1, 1) pairs so that they broadcast.
+# per-pair scalars are (..., 1, 1) pairs so that they broadcast.  On the
+# card the refinement runs the residual and the operator through kernel B4
+# (ops.cuda_kernels.el_residual_df32 / el_matvec_df32, csrc/el_df32.cu, the
+# one place ops.df32's transforms are fused, built with -fmad=false); the
+# two functions below are its plain versions.
 # ---------------------------------------------------------------------------
 
 
@@ -439,7 +443,9 @@ def compute_frame_pair_data_df(
 def el_residual_df(dfd: ELPairDataDF, x_hi: torch.Tensor, x_lo: torch.Tensor) -> torch.Tensor:
     """``b - A_reduced x`` of the df32 system for ``x = x_hi + x_lo``
     ``(..., 3, m, n)``, exact to ~eps^2.  The mirror extension only copies
-    and doubles values (exact), so it applies to hi and lo apart."""
+    and doubles values (exact), so it applies to hi and lo apart.  ~1,200
+    torch ops a call; on the card the refinement runs it as kernel B4
+    (``cuda_kernels.el_residual_df32``), which equals it bit for bit."""
     u_hi = extend_interior(x_hi)
     u_lo = extend_interior(x_lo)
 
@@ -501,7 +507,9 @@ def el_residual_df(dfd: ELPairDataDF, x_hi: torch.Tensor, x_lo: torch.Tensor) ->
 
 def el_matvec_df(dfd: ELPairDataDF, x: torch.Tensor) -> torch.Tensor:
     """``A_reduced x`` against the df32 system data (the df32 residual
-    with a zero RHS, negated); used only inside refinement."""
+    with a zero RHS, negated); used only inside refinement, where on the
+    card it runs as kernel B4 in operator mode
+    (``cuda_kernels.el_matvec_df32``), bit for bit equal to this."""
     zero = torch.zeros_like(dfd.rhs_hi)
     dfd0 = dfd._replace(rhs_hi=zero, rhs_lo=zero)
     return -el_residual_df(dfd0, x, torch.zeros_like(x))

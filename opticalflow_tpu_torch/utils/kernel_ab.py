@@ -55,7 +55,7 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 FLOPS_PER_PIXEL = 110  # float32 operations per output pixel of el_stencil.cuh
 # B3's C entry point before it read tiles in place: pre-extended blocks,
 # the argument types of B1's
-LEGACY_B3 = ("el_matvec_extended", ck.ENTRY_POINTS["el_matvec.cu"][1])
+LEGACY_B3 = ("el_matvec_extended", ck.ENTRY_POINTS["el_matvec.cu"][1], ())
 # (label, pairs, K, m, form): m x m interiors; form "pairs" for B1 and B2;
 # B3 "one tile" (mesh (1, 1, 1)), "windows" (2 x 2 tiles in one launch),
 # "lines" (tile (0, 0) of 2 x 2 and its halo lines)

@@ -1,0 +1,175 @@
+"""A/B of where the solve's time goes on each path, against another
+checkout of the package, on one card:
+
+    python -m opticalflow_tpu_torch.utils.refinement_ab OTHER_TREE
+
+``OTHER_TREE`` is the root of another checkout (e.g. an older commit's
+``opticalflow_tpu_torch`` unpacked there with ``git archive``).  Each
+version runs in processes of its own, its package first on the path: the
+quick paths in turns other, this, this, other, the sweep once each, other
+then this.  Every solve runs with a phase timer
+(``solve_frame_pair``'s ``phase_timer``: the device synchronised at each
+phase's start and end), so each path gives its wall time (host clock,
+synchronised), the seconds of each phase summed over its solves, and the
+df32 refinement's share of the wall.  The paths, as chip_smoke.py drives
+them:
+
+* ``bench``: the bench movie (13 frames of 256x256, blob width 20, sigma 3,
+  v = (0.15, 0.1), x100 through float32), two-pass, alpha 1000 / 1000;
+* ``large``: the 1024x1024 pair (blob width 80), the default solver;
+* ``cli``: the command line's 512x512 stack (blob width 40, integer counts
+  of peak 100), its first 11 frames: 10 pairs in sequence, FGMRES;
+* ``sweep``: the 300-solve grid of BASELINE config 5 (one 128x128 pair,
+  15 x 20 alphas on logspace(1, 5), rtol 1e-6) in chunks of 150 cells, each
+  chunk one batched ``solve_frame_pair`` call as
+  ``analysis.sweeps.vary_regularisation`` makes it.
+
+Prints one line per path with each version's median wall time, phase
+split, refinement share, iterations, converged count and kernel launches
+(B4's where the version has it), and the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+QUICK, SWEEP = ("bench", "large", "cli"), ("sweep",)
+ALPHA = 1000.0
+
+
+def _movie(n_frames, dim, counts=False):
+    import numpy as np
+
+    from opticalflow_tpu_torch.core.synth import make_translating_blob_movie
+
+    movie, _ = make_translating_blob_movie(n_frames=n_frames, dimension=dim,
+                                           width=20.0 * max(dim, 256) / 256, sigma=3.0,
+                                           v_x=0.15, v_y=0.1)
+    if counts:
+        return np.round(movie / movie.max() * 100.0).astype(np.float32)
+    return (movie * 100.0).astype(np.float32)
+
+
+def worker(paths) -> None:
+    """Runs ``paths`` with the package found first on the path; prints one
+    JSON object {path: {wall, phases, iterations, converged, pairs, counts}}."""
+    import numpy as np
+    import torch
+
+    from opticalflow_tpu_torch import SolverConfig
+    from opticalflow_tpu_torch.flow import variational
+    from opticalflow_tpu_torch.ops import cuda_kernels as ck
+
+    dev = torch.device("cuda", 0)
+    ck.load_library()
+    phases = defaultdict(float)
+
+    @contextlib.contextmanager
+    def phase(name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            torch.cuda.synchronize()
+            phases[name] += time.perf_counter() - t0
+
+    def movie_solve(movie, warm_start, solver):
+        m = torch.from_numpy(movie).to(dev)
+        u0 = m.new_zeros((3,) + tuple(m.shape[1:]))
+        _, info = variational._solve_movie(m, u0, ALPHA, ALPHA, "compat", warm_start,
+                                           phase_timer=phase, **variational.solver_kwargs(solver))
+        return info
+
+    def sweep_solve(movie, solver):
+        from opticalflow_tpu_torch.utils.sweep_chunks import REMODELLING_ALPHAS, SPEED_ALPHAS
+
+        m = torch.from_numpy(movie + 1e-4).to(dev)
+        grid = torch.tensor([[a, b] for a in SPEED_ALPHAS for b in REMODELLING_ALPHAS],
+                            dtype=torch.float32, device=dev)
+        u0 = m.new_zeros((3,) + tuple(m.shape[1:]))
+        infos = []
+        for lo in range(0, grid.shape[0], 150):
+            alphas = grid[lo : lo + 150]
+            n = alphas.shape[0]
+            _, info = variational.solve_frame_pair(
+                m[:1].expand(n, *m.shape[1:]), m[1:].expand(n, *m.shape[1:]), u0,
+                alphas[:, 0], alphas[:, 1], dy_mode="compat", phase_timer=phase,
+                **variational.solver_kwargs(solver))
+            infos.append(info)
+        return {k: torch.cat([i[k] for i in infos]) for k in ("iterations", "converged")}
+
+    runs = {"bench": lambda: movie_solve(_movie(13, 256), "two-pass", SolverConfig()),
+            "large": lambda: movie_solve(_movie(2, 1024), "sequential", SolverConfig()),
+            "cli": lambda: movie_solve(_movie(51, 512, counts=True)[:11], "sequential",
+                                       SolverConfig()),
+            "sweep": lambda: sweep_solve(_movie(2, 128), SolverConfig(rtol=1e-6))}
+    movie_solve(_movie(3, 64), "cold", SolverConfig())  # warm-up
+    out = {}
+    for path in paths:
+        phases.clear()
+        counters = ("LAUNCHES", "CORE_LAUNCHES", "EXT_LAUNCHES", "DF_LAUNCHES")
+        before = {c: getattr(ck, c, 0) for c in counters}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = runs[path]()
+        its = info["iterations"].cpu().numpy()  # synchronised
+        wall = time.perf_counter() - t0
+        out[path] = {"wall": wall, "phases": dict(phases), "iterations": its.tolist(),
+                     "converged": int(np.asarray(info["converged"].cpu()).sum()),
+                     "pairs": int(its.size),
+                     "counts": {c: getattr(ck, c, 0) - before[c] for c in counters}}
+    print(json.dumps(out), flush=True)
+
+
+def run(tree: str, paths) -> dict:
+    """One worker process with ``tree``'s package first on the path."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", *paths],
+                          env=env, capture_output=True, text=True, check=True)
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("other_tree", nargs="?", help="root of the other checkout")
+    parser.add_argument("--worker", nargs="+", help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    if args.worker:
+        worker(args.worker)
+        return 0
+    this = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    trees = {"other": args.other_tree, "this": this}
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    runs = {"other": [], "this": []}
+    for name in ("other", "this", "this", "other"):
+        runs[name].append(run(trees[name], QUICK))
+    for name in ("other", "this"):
+        runs[name].append(run(trees[name], SWEEP))
+    for path in QUICK + SWEEP:
+        line = []
+        for name in ("other", "this"):
+            rs = [r[path] for r in runs[name] if path in r]
+            walls = [r["wall"] for r in rs]
+            med = rs[walls.index(statistics.median_low(walls))]
+            split = ", ".join(f"{k} {v:.3f}" for k, v in med["phases"].items())
+            its = med["iterations"] if med["pairs"] <= 12 else f"summed {sum(med['iterations'])}"
+            line.append(f"{name}: wall s {[round(w, 3) for w in walls]}, median run {split}; "
+                        f"refinement {med['phases'].get('refinement', 0.0) / med['wall']:.3f} of "
+                        f"the wall; iterations {its}, converged {med['converged']}/"
+                        f"{med['pairs']}, launches {med['counts']}")
+        print(f"{path}: " + " | ".join(line) + f"  [{card}]", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

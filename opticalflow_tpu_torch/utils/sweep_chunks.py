@@ -16,8 +16,10 @@ with the card's name and power limit from nvidia-smi.
 ``--costs`` first prints what one iteration of the sweep's solve costs at
 a chunk of 300 cells and of 26 (the grid's first cells): milliseconds per
 call (CUDA events, the host's launches included) of the fused matvec
-(B1), the multigrid V-cycle and the df32 matvec of the refinement, and the
-wall time of 50 main BiCGStab iterations.
+(B1), the multigrid V-cycle, the refinement's df32 operator and residual
+as the solve runs them (kernel B4) and their plain versions (the torch ops
+the refinement ran before B4), and the wall time of 50 main BiCGStab
+iterations.  ``--costs --chunks`` (no chunk size) prints the costs alone.
 """
 
 from __future__ import annotations
@@ -83,12 +85,17 @@ def op_costs(movie: np.ndarray, card: str, batches=(300, 26)):
         matvec = variational._make_matvec("auto", p, a_s / scale**2, a_r, "compat", pair.coeffs)
         hierarchy = multigrid.setup(matvec, elop.diag_blocks(pair.coeffs), 126, 126,
                                     torch.float32)
-        dfd = elop.compute_frame_pair_data_df(prev, cur, a_s, a_r, "compat",
-                                              scale.expand(n))
-        u = torch.randn(n, 3, 126, 126, device=dev, generator=torch.Generator(dev).manual_seed(0))
+        ops = ck.pack_df32(elop.compute_frame_pair_data_df(prev, cur, a_s, a_r, "compat",
+                                                           scale.expand(n)))
+        gen = torch.Generator(dev).manual_seed(0)
+        u = torch.randn(n, 3, 126, 126, device=dev, generator=gen)
+        u_lo = u * 1e-8 * torch.randn(n, 3, 126, 126, device=dev, generator=gen)
         v_cycle = functools.partial(multigrid.v_cycle, hierarchy, sweeps=2)
         costs = {"B1": call_ms(lambda: matvec(u), 20), "V-cycle": call_ms(lambda: v_cycle(u), 5),
-                 "df32 matvec": call_ms(lambda: elop.el_matvec_df(dfd, u), 5)}
+                 "df32 operator (B4)": call_ms(lambda: ck.el_matvec_df32(ops, u), 20),
+                 "df32 operator plain": call_ms(lambda: ck.el_matvec_df32_ref(ops, u), 5),
+                 "df32 residual (B4)": call_ms(lambda: ck.el_residual_df32(ops, u, u_lo), 20),
+                 "df32 residual plain": call_ms(lambda: ck.el_residual_df32_ref(ops, u, u_lo), 5)}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         # 50 main iterations: a tolerance no pair reaches
@@ -105,7 +112,7 @@ def op_costs(movie: np.ndarray, card: str, batches=(300, 26)):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--chunks", type=int, nargs="+", default=[48, 150, 300])
+    parser.add_argument("--chunks", type=int, nargs="*", default=[48, 150, 300])
     parser.add_argument("--costs", action="store_true",
                         help="first print the per-call costs of the solve's operators")
     args = parser.parse_args()

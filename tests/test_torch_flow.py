@@ -80,7 +80,9 @@ def test_port_raises_for_paths_not_ported():
     assert gspmd["converged_all"].all()
     for key in ("v_x", "v_y", "remodelling", "iterations"):
         np.testing.assert_array_equal(gspmd[key], xla[key])
-    for cfg in (SolverConfig(method="gmres"), SolverConfig(method="cg"),
+    # CG (the operator is not symmetric) does not converge here: 50
+    # iterations a solve show that it runs and returns finite values
+    for cfg in (SolverConfig(method="gmres"), SolverConfig(method="cg", max_iterations=50),
                 SolverConfig(matvec="hybrid")):
         result = variational_optical_flow(movie, solver=cfg, device="cpu", **ALPHAS)
         assert np.isfinite(result["v_x"]).all()

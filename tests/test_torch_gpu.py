@@ -23,7 +23,10 @@ matches the CPU's sweep to 1e-4 relative; box flow on the card is held to
 the CPU's own float32 accuracy against the CPU's float64 run.  The routes
 of meshes over distinct devices, forced on the one card, and the meshes
 over two GPUs (which skip on a machine with one) are held bitwise against
-the one-device routes: the same per-block arithmetic.
+the one-device routes: the same per-block arithmetic.  Kernel B4 (the df32
+residual and operator, built without contraction into fused multiply-adds)
+is held to its plain version bit for bit: values and bits, signed zeros
+included.
 """
 
 import numpy as np
@@ -302,10 +305,12 @@ def test_sharded_solve_on_the_card_runs_b3_and_matches_the_cpu():
                                            v_x=0.15, v_y=0.1)
     movie = (movie * 100.0).astype(np.float32)
     kw = dict(speed_alpha=1000.0, remodelling_alpha=1000.0, solver=SolverConfig(matvec="pallas"))
-    counts = ck.EXT_LAUNCHES, ck.EXT_PLAIN_CALLS, ck.LAUNCHES
+    counts = ck.EXT_LAUNCHES, ck.EXT_PLAIN_CALLS, ck.LAUNCHES, ck.DF_PLAIN_CALLS
+    df_launches = ck.DF_LAUNCHES
     u_card, info = sharded_variational_solve(movie, mesh=pmesh.make_mesh(frames=1, tx=2, ty=2,
                                                                          devices=[dev] * 4), **kw)
-    assert ck.EXT_LAUNCHES > counts[0] and (ck.EXT_PLAIN_CALLS, ck.LAUNCHES) == counts[1:]
+    assert ck.EXT_LAUNCHES > counts[0] and ck.DF_LAUNCHES > df_launches
+    assert (ck.EXT_PLAIN_CALLS, ck.LAUNCHES, ck.DF_PLAIN_CALLS) == counts[1:]
     cpu = torch.device("cpu")
     u_cpu, info_cpu = sharded_variational_solve(movie, mesh=pmesh.make_mesh([cpu] * 4, 1, 2, 2),
                                                 **kw)
@@ -477,8 +482,11 @@ def test_solve_on_the_card_runs_the_kernel_and_matches_the_cpu():
     movie = (movie * 100.0).astype(np.float32)
     kw = dict(speed_alpha=1000.0, remodelling_alpha=1000.0, warm_start="two-pass")
     launches, plain = ck.LAUNCHES, ck.PLAIN_CALLS
+    df = ck.DF_LAUNCHES, ck.DF_PLAIN_CALLS
     on_card = variational_optical_flow(torch.from_numpy(movie).to(dev), **kw)
     assert ck.LAUNCHES > launches and ck.PLAIN_CALLS == plain
+    # the refinement ran B4, never its plain version
+    assert ck.DF_LAUNCHES > df[0] and ck.DF_PLAIN_CALLS == df[1]
     on_cpu = variational_optical_flow(movie, device="cpu", **kw)
     assert on_card["converged_all"].all() and on_cpu["converged_all"].all()
     epe = np.sqrt((on_card["v_x"] - on_cpu["v_x"]) ** 2 + (on_card["v_y"] - on_cpu["v_y"]) ** 2)
@@ -494,9 +502,11 @@ def test_hybrid_solve_on_the_card_runs_the_kernel_and_matches_the_cpu(method):
     movie = (movie * 100.0).astype(np.float32)
     kw = dict(speed_alpha=1000.0, remodelling_alpha=1000.0, warm_start="two-pass",
               solver=SolverConfig(matvec="hybrid", method=method))
-    counts = ck.CORE_LAUNCHES, ck.CORE_PLAIN_CALLS, ck.LAUNCHES
+    counts = ck.CORE_LAUNCHES, ck.CORE_PLAIN_CALLS, ck.LAUNCHES, ck.DF_PLAIN_CALLS
+    df_launches = ck.DF_LAUNCHES
     on_card = variational_optical_flow(torch.from_numpy(movie).to(dev), **kw)
-    assert ck.CORE_LAUNCHES > counts[0] and (ck.CORE_PLAIN_CALLS, ck.LAUNCHES) == counts[1:]
+    assert ck.CORE_LAUNCHES > counts[0] and ck.DF_LAUNCHES > df_launches
+    assert (ck.CORE_PLAIN_CALLS, ck.LAUNCHES, ck.DF_PLAIN_CALLS) == counts[1:]
     on_cpu = variational_optical_flow(movie, device="cpu", **kw)
     assert on_card["converged_all"].all() and on_cpu["converged_all"].all()
     epe = np.sqrt((on_card["v_x"] - on_cpu["v_x"]) ** 2 + (on_card["v_y"] - on_cpu["v_y"]) ** 2)
@@ -515,9 +525,10 @@ def test_sweep_on_the_card_runs_the_kernel_and_matches_the_cpu():
                                            v_x=0.15, v_y=0.1)
     movie = (movie * 100.0).astype(np.float32)
     grid = ([300.0, 3000.0], [500.0, 5000.0])
-    counts = ck.LAUNCHES, ck.PLAIN_CALLS
+    counts = ck.LAUNCHES, ck.PLAIN_CALLS, ck.DF_LAUNCHES, ck.DF_PLAIN_CALLS
     on_card = vary_regularisation(movie, *grid, device=dev)
     assert ck.LAUNCHES > counts[0] and ck.PLAIN_CALLS == counts[1]
+    assert ck.DF_LAUNCHES > counts[2] and ck.DF_PLAIN_CALLS == counts[3]
     on_cpu = vary_regularisation(movie, *grid, device="cpu")
     assert on_card["converged"].all() and on_cpu["converged"].all()
     for key in ("speed_means", "speed_variances", "remodelling_means", "functional"):
@@ -595,3 +606,91 @@ def test_cli_variational_and_box_on_the_card(tmp_path):
     for key in ("v_x", "v_y", "speed"):
         np.testing.assert_array_equal(box[key], want[key])
     assert (tmp_path / "profile" / "trace.json").stat().st_size > 0
+
+
+# (pairs, (m, n)) of kernel B4's cases: ragged shapes, widths n = 0, 1, 2
+# and 3 mod 4, the 2x2 minimum (every pixel an edge, all four corners
+# doubled), two columns, a block's worth of rows and one more, and the sweep's
+# 126^2; fields with exact zeros in a third of their pixels (signed zeros)
+B4_CASES = [(3, (7, 9)), (3, (61, 190)), (2, (2, 2)), (2, (2, 37)), (1, (9, 2)), (2, (8, 32)),
+            (2, (9, 33)), (3, (45, 67)), (1, (126, 126))]
+
+
+def _df32_operands(dev, B, m, n, dy_mode, seed):
+    """B4's operands, packed from the df32 data of B pairs on the card, and
+    fields x_hi (with zeros) and x_lo."""
+    frames = torch.from_numpy(_frames(m, n, B + 1)).to(dev) * 100.0
+    prev, cur = frames[:-1], frames[1:]
+    alphas = torch.tensor([(1000.0, 1000.0), (300.0, 2000.0), (50.0, 10.0)] * B, device=dev)[:B]
+    dfd = elop.compute_frame_pair_data_df(prev, cur, alphas[:, 0], alphas[:, 1], dy_mode,
+                                          prev.flatten(1).amax(1))
+    gen = torch.Generator(dev).manual_seed(seed)
+    x_hi = torch.randn(B, 3, m, n, device=dev, generator=gen)
+    x_hi[..., ::3] = 0.0
+    x_lo = x_hi * 1e-8 * torch.randn(B, 3, m, n, device=dev, generator=gen)
+    return ck.pack_df32(dfd), x_hi, x_lo
+
+
+def _bitwise_equal(a, b):
+    """Equal values and equal bits (signed zeros, NaN payloads)."""
+    return torch.equal(a, b) and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,shape", B4_CASES)
+@pytest.mark.parametrize("dy_mode", ["compat", "fixed"])
+def test_df32_kernel_equals_its_plain_version(B, shape, dy_mode):
+    """Kernel B4 in residual and operator mode, bit for bit its plain
+    version; also on a subset of pairs, as the refinement takes them."""
+    from opticalflow_tpu_torch.flow.variational import _take
+
+    dev = _cuda()
+    ops, x_hi, x_lo = _df32_operands(dev, B, *shape, dy_mode, seed=4)
+    launches, plain = ck.DF_LAUNCHES, ck.DF_PLAIN_CALLS
+    r = ck.el_residual_df32(ops, x_hi, x_lo)
+    y = ck.el_matvec_df32(ops, x_hi)
+    assert (ck.DF_LAUNCHES, ck.DF_PLAIN_CALLS) == (launches + 2, plain)
+    assert _bitwise_equal(r, ck.el_residual_df32_ref(ops, x_hi, x_lo))
+    assert _bitwise_equal(y, ck.el_matvec_df32_ref(ops, x_hi))
+    idx = torch.arange(B - 1, -1, -2, device=dev)
+    sub = _take(ops, idx)
+    assert _bitwise_equal(ck.el_residual_df32(sub, x_hi[idx], x_lo[idx]), r[idx])
+    assert _bitwise_equal(ck.el_matvec_df32(sub, x_hi[idx]), y[idx])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_df32_wrappers_raise_instead_of_falling_back():
+    dev = _cuda()
+    ops, x_hi, x_lo = _df32_operands(dev, 2, 16, 16, "compat", seed=5)
+    plain = ck.DF_PLAIN_CALLS
+    with pytest.raises(TypeError):  # float32 only on the card, as B1
+        ck.el_matvec_df32(ops._replace(planes=ops.planes.double()), x_hi)
+    with pytest.raises(TypeError):
+        ck.el_residual_df32(ops, x_hi.double(), x_lo.double())
+    with pytest.raises(ValueError):
+        ck.el_matvec_df32(ops, x_hi.transpose(-1, -2))
+    with pytest.raises(ValueError):
+        ck.el_residual_df32(ops._replace(scalars=ops.scalars.cpu()), x_hi, x_lo)
+    with pytest.raises(ValueError):
+        ck.el_residual_df32(ops, x_hi, x_lo[:, :, :-1])
+    assert ck.DF_PLAIN_CALLS == plain
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dy_mode", ["compat", "fixed"])
+def test_solve_on_the_card_refines_through_b4_only(dy_mode):
+    """A batched solve on the card: B4 launched in both modes' refinement,
+    no plain version of any kernel; a float64 solve on the card raises at
+    its first kernel, as it did before B4 (B1's float32 rule)."""
+    dev = _cuda()
+    movie, _ = make_translating_blob_movie(n_frames=3, dimension=40, width=20.0, sigma=3.0,
+                                           v_x=0.15, v_y=0.1)
+    movie = torch.from_numpy((movie * 100.0).astype(np.float32)).to(dev)
+    kw = dict(speed_alpha=1000.0, remodelling_alpha=1000.0, warm_start="cold", dy_mode=dy_mode)
+    counts = ck.DF_LAUNCHES, ck.DF_PLAIN_CALLS, ck.PLAIN_CALLS
+    result = variational_optical_flow(movie, **kw)
+    assert result["converged_all"].all()
+    assert ck.DF_LAUNCHES > counts[0] and (ck.DF_PLAIN_CALLS, ck.PLAIN_CALLS) == counts[1:]
+    with pytest.raises(TypeError):
+        variational_optical_flow(movie, dtype=torch.float64, **kw)
