@@ -17,10 +17,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    the L2 evicted, at every shape its paths launch; and the hybrid matvec
    (B2 plus the boundary ring) against B1's plain version; then the df32
    refinement's kernel B4 (residual and operator mode, both dy rules)
-   against its plain versions bit for bit (``torch.equal``) at the shapes
-   the refinement launches it (11 x 254x254, 1 x 1022x1022, the sweep's
-   150 x 126x126, the command line's 1 x 510x510) and a ragged 3 x 61x190,
-   each timed on the device warm and cold beside its bound;
+   against its plain versions bit for bit (the bits compared) at the
+   shapes the refinement launches it (11 x 254x254, 1 x 1022x1022, the
+   sweep's 150 x 126x126, the command line's 1 x 510x510), each timed on
+   the device warm and cold beside its bound and its issue ceiling, at
+   shapes that end mid-tile (3 x 61x190, 2 x 17x33) and the 2x2 minimum,
+   and on adversarial operands (signed zeros, subnormal low parts, mixed
+   exponents, NaN from an overflowing split; 70,000 pairs of 2x2, more
+   than 65,535 blocks); its registers, spills and warps an SM printed;
 4. the 256x256 path once warm and once timed: ``variational_optical_flow``
    on the bench movie (13 frames of 256x256, 12 pairs, two-pass warm
    start, alpha_s = alpha_r = 1000), with every kernel's counters set to 0
@@ -119,12 +123,15 @@ launch), the plain version's (``plain_ms``), both per back-to-back call
 (``bound_ms``: the larger of the bytes moved over 3.35 TB/s and the
 operations over 67 TFLOP/s of float32, ``bound_by``), and ``library_ms``
 null (no single PyTorch call computes the EL stencil or the df32
-residual); the same timing keys at every other shape a path launches: B1
-under ``at_bench_shape`` (K = 27), ``at_large_shape``, ``at_sweep_shape``
-and ``at_cli_shape``, B2 under ``at_bench_shape`` and ``at_large_shape``,
-B3 and B4 under ``at_path_shape`` (B3: each operand form and K; B4: each
-mode and shape).  The last line is
-``{"ok": true, "device": {...}}``.  Imports no JAX.
+residual), its registers per compiled instance (``registers``, ptxas's
+count in this run's build; null where the library was already built);
+for B4 also its spill bytes (``spill_bytes``, null likewise) and its
+resident warps an SM per mode (``warps_per_sm``); the same timing keys at
+every other shape a path launches: B1 under ``at_bench_shape`` (K = 27),
+``at_large_shape``, ``at_sweep_shape`` and ``at_cli_shape``, B2 under
+``at_bench_shape`` and ``at_large_shape``, B3 and B4 under
+``at_path_shape`` (B3: each operand form and K; B4: each mode and shape).
+The last line is ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
 
 import importlib.util
@@ -147,16 +154,6 @@ N_FRAMES, DIM, ALPHA = 13, 256, 1000.0
 ORACLE_PAIRS = (1, 11)
 LARGE_DIM = 1024  # one pair; blob width 20 * 1024 / 256 as the bench scales it
 SAME_PX = 1e-6  # distributed (world of one) vs sharded_variational_solve, same pairs
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (HBM3)
-F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-# float32 operations per output pixel of el_stencil.cuh, counted from its
-# source: 44 to rebuild the coefficients, 24 + 24 + 18 for the three equations
-FLOPS_PER_PIXEL = 110
-# float32 operations per interior pixel of kernel B4 (csrc/el_df32.cu),
-# counted from its source: 43 terms of 29 (two_prod 17, the small terms 4,
-# two_sum 6, the tail 2; negations are free) and the rounding of each of the
-# three channels' pairs
-DF32_FLOPS_PER_PIXEL = 43 * 29 + 3
 # phase 7: cells of the 15 x 20 grid held against the serial path, and the
 # bound on |batched - serial| of their speed and remodelling means,
 # relative to the field's scale, max(|mean|, standard deviation).  Both
@@ -256,6 +253,9 @@ def bound(N, K, m, n, lines=False):
     lines, 2 (n + 2) + 2 m values a plane), every output plane written
     once, over the card's memory rate; the stencil's operations over its
     float32 rate."""
+    from opticalflow_tpu_torch.utils.cuda_timing import F32_FLOPS_PER_S, HBM_BYTES_PER_S
+    from opticalflow_tpu_torch.utils.kernel_ab import FLOPS_PER_PIXEL
+
     halo = 2 * (n + 2) + 2 * m if lines else 0
     nbytes = 4 * (N * (m + 2) * (n + 2) + 2 * N + 3 * N * K * (2 * m * n + halo))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -549,91 +549,138 @@ def check_extended_kernel(movie, large, dev, card, entry):
 
 
 def bound_df32(B, m, n, P, residual):
-    """(bound_ms, bound_by) of one B4 call on B pairs of (m, n): the P
-    coefficient planes, the per-pair scalars and x read once, y written once,
-    and in residual mode x_lo and the two rhs planes read too, over the
-    card's memory rate; its operations over its float32 rate."""
-    planes = P + 3 + 3 + (9 if residual else 0)
-    nbytes = 4 * (B * m * n * planes + 6 * B)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = DF32_FLOPS_PER_PIXEL * B * m * n / F32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(bound_ms, bound_by) of one B4 call on B pairs of (m, n) with P
+    planes: ``df32_cases.bound``, each operand byte once over the card's
+    memory rate or ~1,250 operations a pixel over its float32 rate."""
+    from opticalflow_tpu_torch.utils import df32_cases
 
-
-def _df32_pairs(prev, cur, alphas, dy_mode, dev):
-    """B4's operands as the refinement packs them: the df32 data of raw
-    frames (B, m+2, n+2) and raw per-pair (alpha_s, alpha_r) (B, 2)."""
-    from opticalflow_tpu_torch.ops import cuda_kernels as ck
-    from opticalflow_tpu_torch.ops import elop
-
-    prev = torch.as_tensor(prev, dtype=torch.float32).to(dev)
-    cur = torch.as_tensor(cur, dtype=torch.float32).to(dev)
-    alphas = torch.as_tensor(alphas, dtype=torch.float32).to(dev)
-    scale = prev.flatten(1).amax(1)
-    return ck.pack_df32(elop.compute_frame_pair_data_df(prev, cur, alphas[:, 0], alphas[:, 1],
-                                                        dy_mode, scale))
+    us, by = df32_cases.bound(B, m, n, P, residual)
+    return us * 1e-3, by
 
 
 def check_df32_kernel(movie, large, stack, dev, card, entry):
     """Phase 3's B4: the df32 residual and operator against their plain
-    versions, bit for bit (``torch.equal``, and the bits compared too), in
+    versions, bit for bit (the bits compared: signed zeros and NaN), in
     both modes and both dy rules at the shapes the refinement launches it
     (the bench's 11 pairs of 254x254, the 1024x1024 pair, the sweep's chunk
-    of 150 cells of 126x126, the command line's 510x510 pair) and a ragged
-    3 x 61x190; each shape timed in compat mode, both kernel modes, warm
-    and cold, with its bound.  Fills B4's JSON entry (the operator at the
-    bench's shape; every other shape and mode under ``at_path_shape``)."""
+    of 150 cells of 126x126, the command line's 510x510 pair), at shapes
+    that end mid-tile (3 x 61x190, 2 x 17x33) and at the 2x2 minimum; then
+    on adversarial operands (``df32_cases.adversarial_operands``: signed
+    zeros, subnormal low parts, mixed exponents; NaN from an overflowing
+    split), also 70,000 pairs of 2x2, a grid of more than 65,535 blocks.
+    Each path shape timed in compat mode, both kernel modes, warm and
+    cold, with its bound and its issue ceiling.  Fills B4's JSON entry (the
+    operator at the bench's shape; every other shape and mode under
+    ``at_path_shape``)."""
     from opticalflow_tpu_torch.ops import cuda_kernels as ck
-    from opticalflow_tpu_torch.utils.sweep_chunks import (REMODELLING_ALPHAS, SPEED_ALPHAS,
-                                                          sweep_movie)
+    from opticalflow_tpu_torch.utils import df32_cases
+    from opticalflow_tpu_torch.utils.sweep_chunks import sweep_movie
 
     n_sweep = sweep_chunk()
     sweep = sweep_movie() + 1e-4
-    grid = np.array([[a, b] for a in SPEED_ALPHAS for b in REMODELLING_ALPHAS][:n_sweep])
     bench = np.full((11, 2), ALPHA)
-    cases = [  # (name, previous frames, current frames, raw alphas)
-        ("11 pairs 254x254 (bench)", movie[1:12], movie[2:13], bench),
-        ("1 pair 1022x1022 (1024)", large[:1], large[1:2], bench[:1]),
+    cases = [  # (name, previous frames, current frames, raw alphas, timed)
+        ("11 pairs 254x254 (bench)", movie[1:12], movie[2:13], bench, True),
+        ("1 pair 1022x1022 (1024)", large[:1], large[1:2], bench[:1], True),
         (f"{n_sweep} cells 126x126 (sweep)", np.repeat(sweep[:1], n_sweep, axis=0),
-         np.repeat(sweep[1:], n_sweep, axis=0), grid),
-        ("1 pair 510x510 (CLI)", stack[:1], stack[1:2], bench[:1]),
-        ("3 pairs 61x190 ragged", movie[:3, :63, :192], movie[1:4, :63, :192], bench[:3]),
+         np.repeat(sweep[1:], n_sweep, axis=0), df32_cases.sweep_alphas(n_sweep), True),
+        ("1 pair 510x510 (CLI)", stack[:1], stack[1:2], bench[:1], True),
+        ("3 pairs 61x190 ragged", movie[:3, :63, :192], movie[1:4, :63, :192], bench[:3], False),
+        ("2 pairs 17x33 mid-tile", movie[:2, 90:109, 90:125], movie[1:3, 90:109, 90:125],
+         bench[:2], False),
+        ("2 pairs 2x2 minimum", movie[:2, 126:130, 126:130], movie[1:3, 126:130, 126:130],
+         bench[:2], False),
     ]
     gen = torch.Generator(dev).manual_seed(3)
-    for name, prev, cur, alphas in cases:
+    for name, prev, cur, alphas, timed in cases:
         for dy_mode in ("compat", "fixed"):
-            ops = _df32_pairs(prev, cur, alphas, dy_mode, dev)
+            ops = df32_cases.pack_pairs(prev, cur, alphas, dy_mode, dev)
             B, P, m, n = ops.planes.shape
             x_hi = torch.randn((B, 3, m, n), device=dev, generator=gen)
             x_lo = x_hi * 1e-8 * torch.randn((B, 3, m, n), device=dev, generator=gen)
-            modes = {"residual": (ck.el_residual_df32, ck.el_residual_df32_ref,
-                                  (ops, x_hi, x_lo)),
-                     "operator": (ck.el_matvec_df32, ck.el_matvec_df32_ref, (ops, x_hi))}
-            for mode, (kernel_fn, plain_fn, args) in modes.items():
-                y = kernel_fn(*args)
-                y_ref = plain_fn(*args)
-                torch.cuda.synchronize()
-                same = torch.equal(y, y_ref)
-                bits = torch.equal(y.view(torch.int32), y_ref.view(torch.int32))
-                err = (y - y_ref).abs().max().item()
-                print(f"B4 {mode} {name} {dy_mode} (P = {P}): torch.equal to its plain version "
-                      f"{same}, bits equal {bits}, max |kernel - plain| {err:.3e}  [{card}]",
-                      flush=True)
-                if not same:
-                    raise AssertionError(f"B4 {mode} differs from its plain version: {name} "
-                                         f"{dy_mode}")
-                entry["max_abs_err"] = max(entry["max_abs_err"], err)
-                del y, y_ref
-                if dy_mode != "compat":
-                    continue
-                bounds = bound_df32(B, m, n, P, mode == "residual")
-                if mode == "operator" and "bench" in name:
-                    timed = entry
-                else:
-                    timed = entry.setdefault("at_path_shape", {})[f"{mode} N={B} {m}x{n}"] = {}
-                time_kernel(timed, f"B4 {mode} ({name})", kernel_fn, plain_fn, args,
-                            (B, 1, m, n), card, bounds)
-            del ops, x_hi, x_lo, modes
+            _check_df32_modes(ops, x_hi, x_lo, f"{name} {dy_mode} (P = {P})", card, entry,
+                              timed and dy_mode == "compat", "bench" in name)
+            del ops, x_hi, x_lo
+    adversarial = [  # (pairs, m, n, P, overflow)
+        (3, 61, 190, 24, False), (2, 17, 33, 26, False), (2, 2, 2, 24, False),
+        (2, 45, 67, 26, True), (70000, 2, 2, 26, False)]
+    for B, m, n, P, overflow in adversarial:
+        ops, x_hi, x_lo = df32_cases.adversarial_operands(B, m, n, P, seed=11, device=dev,
+                                                          overflow=overflow)
+        _check_df32_modes(ops, x_hi, x_lo, f"adversarial {B} pairs {m}x{n} (P = {P}"
+                          f"{', overflow: NaN' if overflow else ''})", card, entry, False, False)
+        del ops, x_hi, x_lo
+    usage = kernel_usage().get("el_df32.cu")  # None where this run built nothing
+    entry["registers"] = {_short(fn): u["registers"] for fn, u in usage.items()} if usage else None
+    entry["spill_bytes"] = (sum(u["spill_stores"] + u["spill_loads"] for u in usage.values())
+                            if usage else None)
+    entry["warps_per_sm"] = {f"P={P} {mode}": ck.df32_warps_per_sm(P, mode == "residual", dev)
+                             for P in (24, 26) for mode in ("operator", "residual")}
+    print(f"B4 build: registers {entry['registers']}, spill bytes {entry['spill_bytes']}, warps "
+          f"an SM {entry['warps_per_sm']}  [{card}]", flush=True)
+
+
+def _check_df32_modes(ops, x_hi, x_lo, name, card, entry, timed, first):
+    """B4 in both modes on one set of operands, held to its plain versions
+    by bits; with ``timed``, each mode timed at this shape (the operator
+    into ``entry`` itself when ``first``, else under ``at_path_shape``)."""
+    from opticalflow_tpu_torch.ops import cuda_kernels as ck
+    from opticalflow_tpu_torch.utils import df32_cases
+
+    B, P, m, n = ops.planes.shape
+    modes = {"residual": (ck.el_residual_df32, ck.el_residual_df32_ref, (ops, x_hi, x_lo)),
+             "operator": (ck.el_matvec_df32, ck.el_matvec_df32_ref, (ops, x_hi))}
+    for mode, (kernel_fn, plain_fn, args) in modes.items():
+        y = kernel_fn(*args)
+        y_ref = plain_fn(*args)
+        torch.cuda.synchronize()
+        same = torch.equal(y, y_ref)
+        bits = df32_cases.bitwise_equal(y, y_ref)
+        finite = torch.isfinite(y_ref)
+        err = (y - y_ref)[finite].abs().max().item() if finite.any() else 0.0
+        print(f"B4 {mode} {name}: torch.equal to its plain version {same}, bits equal {bits}, "
+              f"max |kernel - plain| {err:.3e} over {int(finite.sum())} finite of {y.numel()}  "
+              f"[{card}]", flush=True)
+        if not bits:
+            raise AssertionError(f"B4 {mode} differs from its plain version: {name}")
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        del y, y_ref
+        if not timed:
+            continue
+        bounds = bound_df32(B, m, n, P, mode == "residual")
+        if mode == "operator" and first:
+            target = entry
+        else:
+            target = entry.setdefault("at_path_shape", {})[f"{mode} N={B} {m}x{n}"] = {}
+        time_kernel(target, f"B4 {mode} ({name})", kernel_fn, plain_fn, args, (B, 1, m, n), card,
+                    bounds)
+        issue_us = df32_cases.issue_us(B, m, n)
+        print(f"B4 {mode} ({name}): issue ceiling {issue_us:.3f} us, "
+              f"{issue_us * 1e-3 / target['ms']:.2f} of it warm, "
+              f"{issue_us * 1e-3 / target['cold_ms']:.2f} cold  [{card}]", flush=True)
+
+
+def kernel_usage():
+    """Registers, shared memory and spills of every kernel this process
+    built, by source (ptxas's report in ``BUILD_LOG``)."""
+    from opticalflow_tpu_torch.ops import cuda_kernels as ck
+
+    usage = {}
+    for chunk in ck.BUILD_LOG.split("== ")[1:]:
+        source, _, log = chunk.partition("\n")
+        usage[source.strip()] = ck.ptxas_usage(log)
+    return usage
+
+
+def _short(mangled):
+    """A kernel's name and template arguments from its mangled name, e.g.
+    el_df32_kernel<1,0>."""
+    import re
+
+    found = re.search(r"\d+(el_\w+?kernel)", mangled)
+    name = found.group(1) if found else mangled
+    args = re.findall(r"L[a-zA-Z]\w*?E?(\d+)E", mangled[found.end():] if found else "")
+    return f"{name}<{','.join(args)}>" if args else name
 
 
 def reset_counters():
@@ -1293,6 +1340,11 @@ def main():
     entries = check_kernels(movie, large, stack[:1].astype(np.float32), dev, smi)
     check_extended_kernel(movie, large, dev, smi, entries["el_matvec_extended"])
     check_df32_kernel(movie, large, stack[:2].astype(np.float32), dev, smi, entries["el_df32"])
+    usage = kernel_usage()
+    for kernel, entry in entries.items():
+        used = usage.get(os.path.basename(KERNELS[kernel][1]))
+        entry.setdefault("registers",
+                         {_short(fn): u["registers"] for fn, u in used.items()} if used else None)
 
     # 4. the main path
     movie_t = torch.from_numpy(movie).to(dev)

@@ -60,6 +60,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -107,6 +108,10 @@ ENTRY_POINTS = {"el_matvec.cu": ("el_matvec_reduced_fused", _PAIRS_ARGS, ()),
                 "el_matvec_plain.cu": ("el_matvec_plain_core", _PAIRS_ARGS, ()),
                 "el_matvec_ext.cu": ("el_matvec_tiled", _TILES_ARGS, ()),
                 "el_df32.cu": ("el_df32", _DF32_ARGS, ("-fmad=false",))}
+# queries a source's library may export beside its entry point, loaded
+# where it has them: B4's warps resident on one SM, (P, residual, int *out)
+QUERIES = {"el_df32.cu": {"el_df32_warps_per_sm": [ctypes.c_int, ctypes.c_int,
+                                                   ctypes.c_void_p]}}
 
 _FUNCTIONS: Dict[str, ctypes._CFuncPtr] = {}
 _LOAD_LOCK = threading.Lock()  # one build, however many threads load at once
@@ -172,11 +177,39 @@ def build(source_dir: str = SOURCE_DIR,
             os.replace(f"{libs[src]}.{os.getpid()}.tmp", libs[src])
     functions = {}
     for src, (entry, argtypes, _) in entry_points.items():
-        fn = getattr(ctypes.CDLL(libs[src]), entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        functions[entry] = fn
+        lib = ctypes.CDLL(libs[src])
+        for name, types in {entry: argtypes, **QUERIES.get(src, {})}.items():
+            if name != entry and not hasattr(lib, name):
+                continue  # an older version's source without the query
+            fn = getattr(lib, name)
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
+            functions[name] = fn
     return functions
+
+
+def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
+    """Registers, shared memory and spills of each kernel in a build's
+    ``BUILD_LOG`` (``-Xptxas -v``), by its mangled name."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            name = found.group(1)
+            usage[name] = {"registers": None, "smem_bytes": 0, "spill_stores": 0,
+                           "spill_loads": 0}
+            continue
+        if name is None:
+            continue
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spills:
+            usage[name]["spill_stores"], usage[name]["spill_loads"] = map(int, spills.groups())
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            usage[name]["registers"] = int(used.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            usage[name]["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return usage
 
 
 def load_library() -> Dict[str, ctypes._CFuncPtr]:
@@ -575,8 +608,10 @@ def _check_df32(ops: DF32Operands, *fields: torch.Tensor):
     return B, P, m, n
 
 
-def _launch_df32(ops: DF32Operands, x_hi: torch.Tensor, x_lo: Optional[torch.Tensor]):
-    """Check the operands of a B4 call and launch it on the current stream
+def _launch_df32(ops: DF32Operands, x_hi: torch.Tensor, x_lo: Optional[torch.Tensor],
+                 library: Optional[Dict[str, ctypes._CFuncPtr]] = None):
+    """Check the operands of a B4 call and launch it from ``library`` (a
+    :func:`build`; this checkout's when ``None``) on the current stream
     (residual mode with ``x_lo``, operator mode without); raises on anything
     the kernel does not take and on a failed launch."""
     fields = (x_hi,) if x_lo is None else (x_hi, x_lo)
@@ -588,13 +623,29 @@ def _launch_df32(ops: DF32Operands, x_hi: torch.Tensor, x_lo: Optional[torch.Ten
     _check_contiguous(**tensors)
     out = x_hi.new_empty(x_hi.shape)
     ptr = {name: t.data_ptr() for name, t in tensors.items()}
-    rc = _call(load_library()["el_df32"], x_hi.device, 1,
+    rc = _call((library or load_library())["el_df32"], x_hi.device, 1,
                (ptr["planes"], ptr["scalars"], ptr.get("rhs_hi"), ptr.get("rhs_lo"),
                 ptr["x_hi"], ptr.get("x_lo"), out.data_ptr(), B, P, m, n,
                 int(x_lo is not None)))
     if rc != 0:
         raise RuntimeError(f"el_df32 kernel launch failed: cudaError {rc}")
     return out
+
+
+def df32_warps_per_sm(P: int, residual: bool, device: torch.device,
+                      library: Optional[Dict[str, ctypes._CFuncPtr]] = None) -> Optional[int]:
+    """Warps of kernel B4 resident on one SM of ``device`` at once (CUDA's
+    occupancy calculator on the kernel's registers and shared memory), for
+    P planes and the mode; ``None`` for a build without the query."""
+    fn = (library or load_library()).get("el_df32_warps_per_sm")
+    if fn is None:
+        return None
+    warps = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = fn(P, int(residual), ctypes.addressof(warps))
+    if rc != 0:
+        raise RuntimeError(f"el_df32_warps_per_sm failed: cudaError {rc}")
+    return warps.value
 
 
 def el_residual_df32_ref(ops: DF32Operands, x_hi: torch.Tensor,

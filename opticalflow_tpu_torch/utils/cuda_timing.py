@@ -14,6 +14,10 @@
   dirty lines, whose write-back the timed call would then pay.
 
 Both warm up first and return the median of ``rounds`` timed runs.
+
+The card's rates, from the H100 SXM data sheet, for the bounds of the
+kernels (``chip_smoke.py``, :mod:`kernel_ab`, :mod:`df32_cases`):
+``HBM_BYTES_PER_S``, ``F32_FLOPS_PER_S`` and ``F32_ISSUE_PER_S``.
 """
 
 from __future__ import annotations
@@ -22,6 +26,12 @@ import statistics
 from typing import Callable
 
 import torch
+
+HBM_BYTES_PER_S = 3.35e12  # device memory rate (HBM3)
+F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores, an FMA counted as two
+# float32 instructions issued a second without fused multiply-adds:
+# 132 SMs x 128 lanes x ~1.98 GHz
+F32_ISSUE_PER_S = 33.5e12
 
 
 def call_ms(fn: Callable, reps: int, rounds: int = 5) -> float:

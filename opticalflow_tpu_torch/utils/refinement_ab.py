@@ -7,26 +7,31 @@ checkout of the package, on one card:
 ``opticalflow_tpu_torch`` unpacked there with ``git archive``).  Each
 version runs in processes of its own, its package first on the path: the
 quick paths in turns other, this, this, other, the sweep once each, other
-then this.  Every solve runs with a phase timer
-(``solve_frame_pair``'s ``phase_timer``: the device synchronised at each
-phase's start and end), so each path gives its wall time (host clock,
-synchronised), the seconds of each phase summed over its solves, and the
-df32 refinement's share of the wall.  The paths, as chip_smoke.py drives
+then this.  Every solve runs with a phase timer (``solve_frame_pair``'s
+``phase_timer``: the device synchronised at each phase's start and end),
+so each path gives its wall time (host clock, synchronised), the seconds
+of each phase summed over its solves, and the df32 refinement's share of
+the wall.  The paths, as chip_smoke.py drives
 them:
 
 * ``bench``: the bench movie (13 frames of 256x256, blob width 20, sigma 3,
   v = (0.15, 0.1), x100 through float32), two-pass, alpha 1000 / 1000;
 * ``large``: the 1024x1024 pair (blob width 80), the default solver;
 * ``cli``: the command line's 512x512 stack (blob width 40, integer counts
-  of peak 100), its first 11 frames: 10 pairs in sequence, FGMRES;
+  of peak 100), its first 11 frames: 10 pairs in sequence, FGMRES
+  (``--cli-pairs 50``: all 51 frames, the 50 pairs chip_smoke.py's command
+  line phase solves);
 * ``sweep``: the 300-solve grid of BASELINE config 5 (one 128x128 pair,
   15 x 20 alphas on logspace(1, 5), rtol 1e-6) in chunks of 150 cells, each
   chunk one batched ``solve_frame_pair`` call as
   ``analysis.sweeps.vary_regularisation`` makes it.
 
-Prints one line per path with each version's median wall time, phase
-split, refinement share, iterations, converged count and kernel launches
-(B4's where the version has it), and the card's name and power limit.
+``--paths`` runs only the paths named; ``--no-phase-timer`` times the
+walls alone, with no device sync between phases, as chip_smoke.py times
+its paths.  Prints one line per path with each version's median wall
+time, phase split, refinement share, iterations, converged count and
+kernel launches (B4's where the version has it), and the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -58,9 +63,10 @@ def _movie(n_frames, dim, counts=False):
     return (movie * 100.0).astype(np.float32)
 
 
-def worker(paths) -> None:
+def worker(paths, cli_pairs: int = 10, timed_phases: bool = True) -> None:
     """Runs ``paths`` with the package found first on the path; prints one
-    JSON object {path: {wall, phases, iterations, converged, pairs, counts}}."""
+    JSON object {path: {wall, phases, iterations, converged, pairs, counts}}
+    (phases empty without ``timed_phases``)."""
     import numpy as np
     import torch
 
@@ -82,11 +88,13 @@ def worker(paths) -> None:
             torch.cuda.synchronize()
             phases[name] += time.perf_counter() - t0
 
+    timer = phase if timed_phases else None
+
     def movie_solve(movie, warm_start, solver):
         m = torch.from_numpy(movie).to(dev)
         u0 = m.new_zeros((3,) + tuple(m.shape[1:]))
         _, info = variational._solve_movie(m, u0, ALPHA, ALPHA, "compat", warm_start,
-                                           phase_timer=phase, **variational.solver_kwargs(solver))
+                                           phase_timer=timer, **variational.solver_kwargs(solver))
         return info
 
     def sweep_solve(movie, solver):
@@ -102,14 +110,14 @@ def worker(paths) -> None:
             n = alphas.shape[0]
             _, info = variational.solve_frame_pair(
                 m[:1].expand(n, *m.shape[1:]), m[1:].expand(n, *m.shape[1:]), u0,
-                alphas[:, 0], alphas[:, 1], dy_mode="compat", phase_timer=phase,
+                alphas[:, 0], alphas[:, 1], dy_mode="compat", phase_timer=timer,
                 **variational.solver_kwargs(solver))
             infos.append(info)
         return {k: torch.cat([i[k] for i in infos]) for k in ("iterations", "converged")}
 
     runs = {"bench": lambda: movie_solve(_movie(13, 256), "two-pass", SolverConfig()),
             "large": lambda: movie_solve(_movie(2, 1024), "sequential", SolverConfig()),
-            "cli": lambda: movie_solve(_movie(51, 512, counts=True)[:11], "sequential",
+            "cli": lambda: movie_solve(_movie(51, 512, counts=True)[:cli_pairs + 1], "sequential",
                                        SolverConfig()),
             "sweep": lambda: sweep_solve(_movie(2, 128), SolverConfig(rtol=1e-6))}
     movie_solve(_movie(3, 64), "cold", SolverConfig())  # warm-up
@@ -130,10 +138,11 @@ def worker(paths) -> None:
     print(json.dumps(out), flush=True)
 
 
-def run(tree: str, paths) -> dict:
+def run(tree: str, paths, cli_pairs: int, timed_phases: bool) -> dict:
     """One worker process with ``tree``'s package first on the path."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", *paths],
+    flags = ["--cli-pairs", str(cli_pairs)] + ([] if timed_phases else ["--no-phase-timer"])
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), *flags, "--worker", *paths],
                           env=env, capture_output=True, text=True, check=True)
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
@@ -141,21 +150,28 @@ def run(tree: str, paths) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("other_tree", nargs="?", help="root of the other checkout")
+    parser.add_argument("--paths", nargs="+", choices=QUICK + SWEEP, default=QUICK + SWEEP)
+    parser.add_argument("--cli-pairs", type=int, default=10, choices=range(1, 51),
+                        metavar="1..50", help="pairs of the cli path (default 10)")
+    parser.add_argument("--no-phase-timer", dest="timed_phases", action="store_false",
+                        help="walls alone, no device sync between phases")
     parser.add_argument("--worker", nargs="+", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.worker:
-        worker(args.worker)
+        worker(args.worker, args.cli_pairs, args.timed_phases)
         return 0
     this = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     trees = {"other": args.other_tree, "this": this}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
+    quick = [p for p in QUICK if p in args.paths]
+    sweep = [p for p in SWEEP if p in args.paths]
     runs = {"other": [], "this": []}
-    for name in ("other", "this", "this", "other"):
-        runs[name].append(run(trees[name], QUICK))
-    for name in ("other", "this"):
-        runs[name].append(run(trees[name], SWEEP))
-    for path in QUICK + SWEEP:
+    for name in ("other", "this", "this", "other") if quick else ():
+        runs[name].append(run(trees[name], quick, args.cli_pairs, args.timed_phases))
+    for name in ("other", "this") if sweep else ():
+        runs[name].append(run(trees[name], sweep, args.cli_pairs, args.timed_phases))
+    for path in quick + sweep:
         line = []
         for name in ("other", "this"):
             rs = [r[path] for r in runs[name] if path in r]

@@ -16,6 +16,8 @@ with four others, so a gate there would pin a summation order, not the
 solve.
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import numpy as np
 import pytest
 import torch
@@ -26,19 +28,6 @@ from opticalflow_tpu_torch.core.synth import make_translating_blob_movie
 EPE_LIMIT_PX = 1e-3
 ALPHAS = dict(speed_alpha=1000.0, remodelling_alpha=1000.0)
 F32_REDUCTIONS = SolverConfig(high_precision_reductions=False)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread for these solves: thousands of small ops and a
-    host check per iteration, which several threads per test worker, beside
-    the suite's other workers, slow down many times over (~20 s on one
-    thread; the cold batch ran over 900 s with the default threads in a
-    loaded six-worker run of the suite)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _movie(n_frames, dim):

@@ -8,6 +8,8 @@ float32 sums in another order (JAX convolves, the port adds shifted
 slices), held to 2e-6 of the largest value.
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,8 @@ Tolerances:
   JAX package's own bound for its sweep against the serial flow.
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

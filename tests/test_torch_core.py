@@ -6,6 +6,8 @@ scaling by a power of two, or a short sum), so they are compared for
 equality in float64 and to float32 rounding (rtol 1e-6) in float32.
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import dataclasses
 import subprocess
 import sys

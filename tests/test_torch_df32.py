@@ -9,6 +9,8 @@ held against a float64 evaluation to ~eps_f32^2 relative (1e-10 of the
 largest term).  The blur is float64, compared to rounding (rtol 1e-12).
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

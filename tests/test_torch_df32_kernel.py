@@ -12,6 +12,8 @@ held to that too.  Kernel B4 itself is held bitwise to these plain
 versions on the card (tests/test_torch_gpu.py, chip_smoke.py phase 3).
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +25,7 @@ from opticalflow_tpu_torch.core.synth import make_translating_blob_movie
 from opticalflow_tpu_torch.flow import variational
 from opticalflow_tpu_torch.ops import cuda_kernels as ck
 from opticalflow_tpu_torch.ops import elop
+from opticalflow_tpu_torch.utils import df32_cases
 
 ALPHAS = [(1000.0, 1000.0), (300.0, 2000.0), (50.0, 10.0)]
 
@@ -182,3 +185,74 @@ def test_refinement_runs_through_the_wrappers():
                              remodelling_alpha=1000.0, warm_start="cold",
                              solver=SolverConfig(refinement_restarts=0), device="cpu")
     assert ck.DF_PLAIN_CALLS == plain
+
+
+def _jax_data(ops, b):
+    """Pair ``b`` of packed operands as the JAX package's ``ELPairDataDF``:
+    the same float32 values, the per-pair scalars 0-d."""
+    data = {}
+    for name, value in ck._df32_views(ops)._asdict().items():
+        if name in ("rhs_hi", "rhs_lo"):
+            data[name] = jnp.asarray(value[b].numpy())
+        else:
+            data[name] = tuple(jnp.asarray(v[b].numpy().reshape(v.shape[1:] if v.dim() == 3
+                                                                else ()))
+                               for v in value)
+    return jelop.ELPairDataDF(**data)
+
+
+@pytest.mark.parametrize("P,overflow", [(24, False), (26, False), (26, True)])
+def test_adversarial_operands_hold_what_they_promise(P, overflow):
+    """The operands the card holds B4 to its plain versions on
+    (``df32_cases.adversarial_operands``): zeros of both signs in every
+    tensor, subnormal low parts, heads whose exponents span more than 100
+    binades; the plain path on them equals the JAX package's
+    ``el_residual_df`` / ``el_matvec_df`` pair by pair bit for bit (signed
+    zeros and NaN included; the subnormal low parts give the same bits
+    under XLA:CPU), with NaN in the residual exactly where an overflow was
+    asked for."""
+    ops, x_hi, x_lo = df32_cases.adversarial_operands(3, 9, 11, P, seed=11, device="cpu",
+                                                      overflow=overflow)
+    assert ops.planes.shape == (3, P, 9, 11) and ops.scalars.shape == (3, 6)
+    for t in (ops.planes, ops.rhs_hi, ops.rhs_lo, x_hi, x_lo):
+        zeros = t[t == 0]
+        assert torch.signbit(zeros).any() and (~torch.signbit(zeros)).any()
+    for lo in (ops.planes[:, 1::2], ops.rhs_lo, x_lo):
+        assert ((lo != 0) & (lo.abs() < 2.0**-126)).any()
+    exponents = torch.log2(x_hi[(x_hi != 0) & (x_hi.abs() < 2.0**100)].abs())
+    assert exponents.max() - exponents.min() > 100
+    r = ck.el_residual_df32(ops, x_hi, x_lo)
+    y = ck.el_matvec_df32(ops, x_hi)
+    for b in range(3):
+        theirs = _jax_data(ops, b)
+        r_jax = jelop.el_residual_df(theirs, jnp.asarray(x_hi[b].numpy()),
+                                     jnp.asarray(x_lo[b].numpy()))
+        y_jax = jelop.el_matvec_df(theirs, jnp.asarray(x_hi[b].numpy()))
+        assert df32_cases.bitwise_equal(r[b], torch.from_numpy(np.array(r_jax)))
+        assert df32_cases.bitwise_equal(y[b], torch.from_numpy(np.array(y_jax)))
+    assert bool(torch.isnan(r).any()) == overflow
+
+
+def test_ptxas_usage_reads_registers_and_spills():
+    """The build log's -Xptxas -v report, as chip_smoke.py and kernel_ab
+    print it: registers, shared memory and spills per kernel instance."""
+    log = ("ptxas info    : 0 bytes gmem\n"
+           "ptxas info    : Compiling entry function '_Z1kILb1EEvPf' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z1kILb1EEvPf\n"
+           "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads\n"
+           "ptxas info    : Used 128 registers, used 1 barriers, 29376 bytes smem, "
+           "416 bytes cmem[0]\n"
+           "ptxas info    : Compiling entry function '_Z1kILb0EEvPf' for 'sm_90a'\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 96 registers, 416 bytes cmem[0]\n")
+    assert ck.ptxas_usage(log) == {
+        "_Z1kILb1EEvPf": {"registers": 128, "smem_bytes": 29376, "spill_stores": 8,
+                          "spill_loads": 12},
+        "_Z1kILb0EEvPf": {"registers": 96, "smem_bytes": 0, "spill_stores": 0,
+                          "spill_loads": 0}}
+
+
+def test_occupancy_query_is_optional():
+    """An older build of B4 has no occupancy query: the wrapper says so
+    with None rather than raising."""
+    assert ck.df32_warps_per_sm(24, False, torch.device("cpu"), library={"el_df32": None}) is None

@@ -13,6 +13,8 @@ to rtol 1e-3, atol 1e-4: JAX's own bound for its two-process run (the
 solutions agree to the solve tolerance, not bitwise).
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import os
 import socket
 import subprocess
@@ -91,6 +93,8 @@ def _worker(rank: int, world: int, port: str, outdir: str, matvec: str, split: s
     sys.path.insert(0, REPO)
     import torch
     import torch.distributed as dist
+
+    torch.set_num_threads(1)  # tests/torch_threads.py says why
 
     from opticalflow_tpu_torch.core.types import SolverConfig
     from opticalflow_tpu_torch.ops import cuda_kernels as ck

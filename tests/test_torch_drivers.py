@@ -9,6 +9,8 @@ see test_box_cli_matches_the_jax_run_box), both float32, the port held to
 the JAX run's accuracy against the float64 flow.
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import os
 import re
 

@@ -6,6 +6,8 @@ Small sizes: ``--dimension 24`` (32 for the vortex pair, with alpha 5000,
 where the solve converges in a few dozen iterations on the CPU).
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import os
 
 import numpy as np

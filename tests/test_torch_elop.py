@@ -7,6 +7,8 @@ rounding (rtol 1e-12) and float32 to a few ulps of the largest term
 (``max|a - b| <= 1e-5 * max|b|`` per plane).
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -20,6 +20,8 @@ the oracle (plus 1e-5 px): the question is whether the port's solve loses
 accuracy that the JAX package's keeps at the same exit.
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import time
 
 import jax.numpy as jnp

@@ -20,6 +20,8 @@ halo lines) is held bitwise (rtol = atol = 0) to the plain version on the
 pre-extended blocks: the same values reach the same arithmetic.
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

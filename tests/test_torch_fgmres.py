@@ -17,6 +17,8 @@ norms agree to 1e-6 relative, or to 1e-14 of ||b|| where a converged
 residual is itself at the rounding level of its evaluation.
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import functools
 
 import jax

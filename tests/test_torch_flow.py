@@ -15,6 +15,8 @@ Tolerances (EPE = max over interior pixels of the flow endpoint error, px):
 * functionals: rtol 1e-4 (sums over the same solutions).
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -15,6 +15,8 @@ The JAX tests run with x64 enabled (tests/conftest.py), so their solves
 are float64; the port's here are too (``dtype=torch.float64``).
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import numpy as np
 import pytest
 import torch
@@ -25,17 +27,6 @@ from opticalflow_tpu_torch.core.synth import (make_remodelling_ramp_movie,
 
 CPU = dict(device="cpu", dtype=torch.float64)
 INTERIOR = np.s_[8:-8, 8:-8]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread, as tests/test_torch_accuracy_f32.py: thousands
-    of small ops per solve, which several threads per test worker, beside
-    the suite's other workers, slow down many times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -611,9 +611,19 @@ def test_cli_variational_and_box_on_the_card(tmp_path):
 # (pairs, (m, n)) of kernel B4's cases: ragged shapes, widths n = 0, 1, 2
 # and 3 mod 4, the 2x2 minimum (every pixel an edge, all four corners
 # doubled), two columns, a block's worth of rows and one more, and the sweep's
-# 126^2; fields with exact zeros in a third of their pixels (signed zeros)
+# 126^2; fields with exact zeros in a third of their pixels (signed zeros).
+# Against B4's tiles of 32 columns x 16 rows: one tile exactly, one pixel
+# short and one over in both axes, and shapes that end mid-tile in rows and
+# columns at once.
 B4_CASES = [(3, (7, 9)), (3, (61, 190)), (2, (2, 2)), (2, (2, 37)), (1, (9, 2)), (2, (8, 32)),
-            (2, (9, 33)), (3, (45, 67)), (1, (126, 126))]
+            (2, (9, 33)), (3, (45, 67)), (1, (126, 126)), (2, (16, 32)), (2, (15, 31)),
+            (2, (17, 33)), (1, (31, 95))]
+# (pairs, (m, n), P, overflow) of B4's adversarial cases
+# (``df32_cases.adversarial_operands``: signed zeros, subnormal low parts,
+# heads of mixed exponents; with overflow, NaN in the outputs): ragged, the
+# 2x2 minimum, and 70,000 pairs of 2x2, a grid of more than 65,535 blocks
+B4_ADVERSARIAL = [(3, (61, 190), 24, False), (2, (17, 33), 26, False), (2, (2, 2), 24, False),
+                  (2, (45, 67), 26, True), (70000, (2, 2), 26, False)]
 
 
 def _df32_operands(dev, B, m, n, dy_mode, seed):
@@ -656,6 +666,25 @@ def test_df32_kernel_equals_its_plain_version(B, shape, dy_mode):
     sub = _take(ops, idx)
     assert _bitwise_equal(ck.el_residual_df32(sub, x_hi[idx], x_lo[idx]), r[idx])
     assert _bitwise_equal(ck.el_matvec_df32(sub, x_hi[idx]), y[idx])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,shape,P,overflow", B4_ADVERSARIAL)
+def test_df32_kernel_equals_its_plain_version_on_adversarial_operands(B, shape, P, overflow):
+    """Kernel B4 in residual and operator mode on operands made to catch a
+    kernel that is not its plain version bit for bit: compared by bits,
+    so that -0 and NaN are checked too."""
+    from opticalflow_tpu_torch.utils.df32_cases import adversarial_operands, bitwise_equal
+
+    dev = _cuda()
+    ops, x_hi, x_lo = adversarial_operands(B, *shape, P, seed=11, device=dev, overflow=overflow)
+    r = ck.el_residual_df32(ops, x_hi, x_lo)
+    y = ck.el_matvec_df32(ops, x_hi)
+    r_ref = ck.el_residual_df32_ref(ops, x_hi, x_lo)
+    y_ref = ck.el_matvec_df32_ref(ops, x_hi)
+    assert bitwise_equal(r, r_ref) and bitwise_equal(y, y_ref)
+    assert bool(torch.isnan(r_ref).any()) == overflow
     torch.cuda.synchronize()
 
 

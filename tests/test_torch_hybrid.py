@@ -18,6 +18,8 @@ K probes runs the same elementwise arithmetic as K single calls, so the two
 agree exactly.
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -9,6 +9,8 @@ port's blur in float32 on float32 movies, against the JAX package's blur
 of the same float32 movie: equal to 1e-5 relative.
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import os
 
 import numpy as np

@@ -13,6 +13,8 @@ PyTorch's one-op-at-a-time evaluation), a few ulps of the largest term.
 Each output field is compared by ``max|a - b| <= 1e-5 * max|b|``.
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

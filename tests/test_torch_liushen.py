@@ -8,6 +8,8 @@ whose matrix is dominated by the alpha term); the reference's regression
 constant to 5%, as the JAX package holds it.
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

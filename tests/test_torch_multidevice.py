@@ -26,6 +26,8 @@ Tolerances:
   the exchange route's solve against the JAX package's.
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import socket
 import sys
 import threading
@@ -70,21 +72,6 @@ def forced_solve(movie, mesh, solver=None, dtype=torch.float32, speed_alpha=1.0,
     return batch._mesh_solve(m[:-1], m[1:], m.new_zeros((3,) + tuple(m.shape[1:])), speed_alpha,
                              remodelling_alpha, solver or SolverConfig(), stencils.DY_COMPAT,
                              mesh, as_distinct=True)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread, as tests/test_torch_accuracy_f32.py: thousands
-    of small ops per solve, which several threads per test worker, beside
-    the suite's other workers, slow down many times over.  It also keeps
-    the bitwise comparisons to what they test: with the default threads the
-    first solve after the JAX package's computations in a process now and
-    then took other bits (two pairs off by ~6e-7 relative, the solve's
-    tolerance) than the same solve later, whichever route ran first."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -23,6 +23,8 @@ Tolerances:
   its float32 sharded solve, tests/test_parallel.py:117).
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -46,16 +48,6 @@ ALPHAS = dict(speed_alpha=500.0, remodelling_alpha=500.0)
 
 def cpu_mesh(frames, tx, ty):
     return pmesh.make_mesh([CPU] * (frames * tx * ty), frames=frames, tx=tx, ty=ty)
-
-
-@pytest.fixture
-def one_thread():
-    """One intra-op thread for the bitwise comparisons of two solves
-    (tests/test_torch_multidevice.py says why)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -175,7 +167,7 @@ def test_sharded_solve_matches_jax(movie, jax_solution, shape, matvec, dtype):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("matvec", ["pallas", "xla"])
 @pytest.mark.parametrize("shape", [(1, 2, 2), (1, 3, 1)])
-def test_exchange_route_matches_jax(movie, jax_solution, one_thread, shape, matvec, dtype):
+def test_exchange_route_matches_jax(movie, jax_solution, shape, matvec, dtype):
     """The distinct-device route (seams exchanged between tiles), forced on
     one device: bitwise the windows route's solve, and within the bounds of
     test_sharded_solve_matches_jax of JAX's (the 30x30 interior tiles over
@@ -235,7 +227,7 @@ def test_hybrid_on_a_tiling_mesh_and_distinct_devices_raise(movie):
 
 
 @pytest.mark.parametrize("shape", [(1, 2, 1), (2, 1, 1)])
-def test_distinct_devices_solve(movie, one_thread, shape):
+def test_distinct_devices_solve(movie, shape):
     """A mesh over distinct devices solves: the tiles exchange seams, the
     frames rows run in workers, and the result equals the one-device mesh's
     bitwise.  The CPU has no distinct devices, so the mesh names two CPU

@@ -20,6 +20,8 @@ Tolerances:
   the illumination correction float64 to rtol 1e-12.
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import numpy as np
 import pytest
 import torch

@@ -4,6 +4,8 @@ non-negative duration, recorded as ``solve/<phase>`` spans.  The port
 times each phase directly (synchronised host timers, best of ``reps``
 solves), so the phases of one solve add up to at most its total."""
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,8 @@ each pair's exit by a few iterations: counts agree within 5%, and both
 iterates meet rtol 1e-9, so they agree to 1e-6 of their norm.
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import functools
 
 import jax

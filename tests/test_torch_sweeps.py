@@ -22,6 +22,8 @@ Tolerances:
   few more or fewer evaluations).
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import numpy as np
 import pytest
 import torch

@@ -8,6 +8,8 @@ the host first).  Without ffmpeg a movie is written as a GIF beside the
 requested name, as in the JAX package.
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import os
 
 import numpy as np

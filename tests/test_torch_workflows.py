@@ -11,6 +11,8 @@ exactly on the same movie and flow (the same cv2 / numpy calls on the same
 arrays).  The cache resumes: a second workflow run computes no flow.
 """
 
+from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first: see its module)
+
 import os
 
 import numpy as np
