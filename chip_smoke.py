@@ -25,6 +25,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    and on adversarial operands (signed zeros, subnormal low parts, mixed
    exponents, NaN from an overflowing split; 70,000 pairs of 2x2, more
    than 65,535 blocks); its registers, spills and warps an SM printed;
+   then the multigrid V-cycle's kernels B5 (smoothing sweeps, level-0
+   epilogue, stencil apply) and B6 (residual-and-restrict, prolong-and-add)
+   against their plain versions bit for bit at every level shape each
+   path's V-cycle launches (the bench's 11 x 254x254 and 127-16, the
+   sweep's 150 x 126x126 and 63-16, the command line's 510, 255 and 128,
+   the 1024x1024 pair's 1022, 511 and 256), a ragged 3 x 61x190, 2x2 and
+   1x1, the setup's probes at K = 27 and the coarsest operator's K = 192,
+   level 0's and level 1's launches of each path timed warm and cold
+   beside their bound (B6 beside ``F.conv2d`` / ``F.conv_transpose2d``);
+   and one V-cycle at the sweep's chunk timed, on the kernels and through
+   the plain stages, with what each launches;
 4. the 256x256 path once warm and once timed: ``variational_optical_flow``
    on the bench movie (13 frames of 256x256, 12 pairs, two-pass warm
    start, alpha_s = alpha_r = 1000), with every kernel's counters set to 0
@@ -107,30 +118,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    named as not drawn.  Phase 3 holds B1 against its plain version at the
    command line's shape (one pair of 510x510, K = 1 and 27) and times it.
 
-Every solve of phases 4-7 and 9 refines through kernel B4: each path run
-counts B4's launches beside its matvec kernel's and fails where B4 did not
-launch or any plain version ran.
+Every solve of phases 4-7 and 9 refines through kernel B4 and runs its
+V-cycles on kernels B5 and B6: each path run counts their launches beside
+its matvec kernel's and fails where B4, B5 or B6 did not launch or any
+plain version ran (the float64 oracles, matvec ``'xla'``, run the plain
+stages and are not path runs).
 
 The second-to-last line is a JSON object with one entry per kernel: its
 launches in each path's run (``launches_by_path``) and their sum
 (``launches``); its largest error against its plain version; at its timed
 shape (B1 and B2: 11 pairs of 254x254; B3: the 1022x1022 interior as one
-tile; K = 1; B4: the operator at 11 pairs of 254x254), its device time per
+tile; K = 1; B4: the operator at 11 pairs of 254x254; B5: the sweep and
+B6: the residual-and-restrict on the sweep's level 1, 150 x 63x63), its
+device time per
 launch warm (``ms``, CUDA-graph replays
 on operands left in L2) and cold (``cold_ms``, the L2 evicted before every
 launch), the plain version's (``plain_ms``), both per back-to-back call
 (``call_ms``, ``plain_call_ms``), the least time the card could take
 (``bound_ms``: the larger of the bytes moved over 3.35 TB/s and the
 operations over 67 TFLOP/s of float32, ``bound_by``), and ``library_ms``
-null (no single PyTorch call computes the EL stencil or the df32
-residual), its registers per compiled instance (``registers``, ptxas's
+(B6: ``F.conv2d`` / ``F.conv_transpose2d`` of the same transfer; null for
+the others: no single PyTorch call computes the EL stencil, the df32
+residual or a block-Jacobi sweep), its registers per compiled instance (``registers``, ptxas's
 count in this run's build; null where the library was already built);
 for B4 also its spill bytes (``spill_bytes``, null likewise) and its
 resident warps an SM per mode (``warps_per_sm``); the same timing keys at
 every other shape a path launches: B1 under ``at_bench_shape`` (K = 27),
 ``at_large_shape``, ``at_sweep_shape`` and ``at_cli_shape``, B2 under
-``at_bench_shape`` and ``at_large_shape``, B3 and B4 under
-``at_path_shape`` (B3: each operand form and K; B4: each mode and shape).
+``at_bench_shape`` and ``at_large_shape``, B3-B6 under ``at_path_shape``
+(B3: each operand form and K; B4: each mode and shape; B5 and B6: each
+path's timed launches).
 The last line is ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
 
@@ -328,10 +345,11 @@ def _normalised(movie, dev):
     return I, torch.stack([ALPHA / scale**2, torch.full_like(scale, ALPHA)], dim=-1)
 
 
-# wrapper (its plain version is the wrapper's name + "_ref"; for B4 the
-# kernel, whose wrappers are el_residual_df32 and el_matvec_df32): counter
-# label, source, TPU kernel it replaces (B4: no Pallas kernel, the JAX
-# function that XLA fuses)
+# wrapper (its plain version is the wrapper's name + "_ref"; for B4-B6 the
+# kernel: B4's wrappers are el_residual_df32 and el_matvec_df32, B5's
+# mg_smooth, mg_smooth_fine and mg_stencil_apply, B6's mg_residual_restrict
+# and mg_prolong_add): counter label, source, TPU kernel it replaces (B4-B6:
+# no Pallas kernel, the JAX function that XLA fuses)
 KERNELS = {
     "el_matvec_reduced_fused": ("B1", "opticalflow_tpu_torch/csrc/el_matvec.cu",
                                 "opticalflow_tpu/ops/pallas_kernels.py:398"),
@@ -341,6 +359,10 @@ KERNELS = {
                            "opticalflow_tpu/ops/pallas_kernels.py:70"),
     "el_df32": ("B4", "opticalflow_tpu_torch/csrc/el_df32.cu",
                 "opticalflow_tpu/ops/elop.py:519"),
+    "mg_smooth": ("B5", "opticalflow_tpu_torch/csrc/mg_smooth.cu",
+                  "opticalflow_tpu/solve/multigrid.py:247"),
+    "mg_transfer": ("B6", "opticalflow_tpu_torch/csrc/mg_transfer.cu",
+                    "opticalflow_tpu/solve/multigrid.py:77"),
 }
 
 
@@ -348,6 +370,9 @@ KERNELS = {
 # those their paths launch (the bench's at K = 27)
 TIMED_AT = {"el_matvec_reduced_fused": ("bench", "large", "sweep", "cli"),
             "el_matvec_plain_core": ("bench", "large")}
+KERNELS_BY_LABEL = {label: name for name, (label, _, _) in KERNELS.items()}
+# the B5 / B6 launches phase 3 times on each path: level 0's, then level 1's
+MG_TIMED = (("fine", "restrict b - y", "prolong-add"), ("sweep", "zero guess", "residual-restrict"))
 
 
 def check_kernels(movie, large, stack_frame, dev, card):
@@ -660,6 +685,87 @@ def _check_df32_modes(ops, x_hi, x_lo, name, card, entry, timed, first):
               f"{issue_us * 1e-3 / target['cold_ms']:.2f} cold  [{card}]", flush=True)
 
 
+def check_mg_kernels(dev, card, entries):
+    """Phase 3's B5 and B6: every launch each path's V-cycle makes at its
+    level shapes (``mg_cases.path_cases``: the bench's 11 x 254x254 and its
+    probed levels 127-16, the sweep's 150 x 126x126 and 63-16, the command
+    line's 1 x 510x510, 255 and 128, the 1024x1024 pair's 1 x 1022x1022,
+    511 and 256), a ragged 3 x 61x190, 2 x 2 and 1 x 1, the setup's probes
+    at K = 27 (the sweep's, the largest) and the coarsest operator's K = 192
+    (3 m n at 8 x 8), each held to its plain version bit for bit (the bits
+    compared: signed zeros among the operands).  Level 0's epilogue,
+    restriction and prolongation and level 1's sweep, zero guess and
+    residual-and-restrict of each path timed warm and cold beside their
+    bound, B6's restrictions and prolongations beside ``F.conv2d`` /
+    ``F.conv_transpose2d`` (TF32 off); the sweep path's level-1 sweep and
+    residual-and-restrict fill B5's and B6's own keys.  Then the V-cycle's
+    milliseconds and launches at the sweep's chunk."""
+    from opticalflow_tpu_torch.utils import mg_cases
+    from opticalflow_tpu_torch.utils.cuda_timing import device_ms
+    from opticalflow_tpu_torch.utils.df32_cases import bitwise_equal
+    from opticalflow_tpu_torch.utils.sweep_chunks import sweep_movie, v_cycle_costs
+
+    Case = mg_cases.Case
+    n_sweep = sweep_chunk()
+    cases = []  # (label, case, timed)
+    for path in mg_cases.PATHS:
+        path_cases = mg_cases.path_cases(path)
+        level0, level1 = path_cases[0].M, path_cases[4].M
+        cases += [(path, c, (c.M, c.kind) in {(level0, k) for k in MG_TIMED[0]}
+                   | {(level1, k) for k in MG_TIMED[1]}) for c in path_cases]
+    cases += [("ragged", Case(kind, 3, 1, 61, 190), False) for kind in
+              ("sweep", "zero guess", "fine", "apply", "residual-restrict", "restrict b - y",
+               "prolong-add")]
+    cases += [(label, Case(kind, 2, K, M, M), False) for label, M in (("2x2", 2), ("1x1", 1))
+              for K in (1, 27) for kind in mg_cases.KINDS
+              if K == 1 or kind not in ("sweep", "zero guess", "fine")]
+    cases += [("sweep setup, probes", Case(kind, n_sweep, 27, M, M), False)
+              for kind, M in (("prolong", 126), ("restrict y", 126), ("prolong", 63),
+                              ("restrict S x", 63), ("apply", 32))]
+    cases += [("sweep setup, coarsest operator", Case("apply", n_sweep, 192, 8, 8), False),
+              ("bench setup, coarsest operator", Case("apply", 11, 192, 8, 8), False)]
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the yardsticks' convolutions in full float32
+    for index, (label, case, timed) in enumerate(cases):
+        name = KERNELS_BY_LABEL[mg_cases.KINDS[case.kind]]
+        kernel_fn, plain_fn, args = mg_cases.operands(case, dev, seed=index)
+        y = kernel_fn(*args)
+        y_ref = plain_fn(*args)
+        torch.cuda.synchronize()
+        bits = bitwise_equal(y, y_ref)
+        err = (y - y_ref).abs().max().item()
+        desc = f"{case.kind} N={case.B} K={case.K} {case.M}x{case.N}"
+        print(f"{mg_cases.KINDS[case.kind]} {label} {desc}: bits equal to its plain version "
+              f"{bits}, max |kernel - plain| {err:.3e}  [{card}]", flush=True)
+        if not bits:
+            raise AssertionError(f"{mg_cases.KINDS[case.kind]} differs from its plain version: "
+                                 f"{label} {desc}")
+        entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], err)
+        del y, y_ref
+        if timed:
+            own = label == "sweep" and case.M == 63 and case.kind in ("sweep",
+                                                                       "residual-restrict")
+            if own:
+                target = entries[name]
+            else:
+                target = entries[name].setdefault("at_path_shape", {})[f"{label} {desc}"] = {}
+            time_kernel(target, f"{mg_cases.KINDS[case.kind]} {label} {case.kind}", kernel_fn,
+                        plain_fn, args, (case.B, case.K, case.M, case.N), card,
+                        mg_cases.bound(case))
+            library = mg_cases.library_call(case, args)
+            if library is not None:
+                target["library_ms"] = device_ms(library)
+                call = "conv_transpose2d" if case.kind.startswith("prolong") else "conv2d"
+                print(f"  its transfer alone as one convolution (F.{call}, TF32 off): "
+                      f"{target['library_ms'] * 1e3:.3f} us  [{card}]", flush=True)
+        del args
+    torch.backends.cudnn.allow_tf32 = tf32
+    print(f"B5 and B6: {len(cases)} cases bitwise equal to their plain versions in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    v_cycle_costs(sweep_movie(), n_sweep, card)
+
+
 def kernel_usage():
     """Registers, shared memory and spills of every kernel this process
     built, by source (ptxas's report in ``BUILD_LOG``)."""
@@ -674,10 +780,10 @@ def kernel_usage():
 
 def _short(mangled):
     """A kernel's name and template arguments from its mangled name, e.g.
-    el_df32_kernel<1,0>."""
+    el_df32_kernel<1,0> or restrict_kernel<1,1>."""
     import re
 
-    found = re.search(r"\d+(el_\w+?kernel)", mangled)
+    found = re.search(r"\d+((?:el|mg)_\w+?kernel|restrict_kernel|prolong_kernel)", mangled)
     name = found.group(1) if found else mangled
     args = re.findall(r"L[a-zA-Z]\w*?E?(\d+)E", mangled[found.end():] if found else "")
     return f"{name}<{','.join(args)}>" if args else name
@@ -689,6 +795,7 @@ def reset_counters():
 
     ck.LAUNCHES = ck.PLAIN_CALLS = ck.CORE_LAUNCHES = ck.CORE_PLAIN_CALLS = 0
     ck.EXT_LAUNCHES = ck.EXT_PLAIN_CALLS = ck.DF_LAUNCHES = ck.DF_PLAIN_CALLS = 0
+    ck.MG_LAUNCHES = ck.MG_PLAIN_CALLS = ck.MGT_LAUNCHES = ck.MGT_PLAIN_CALLS = 0
     observability.reset()
     torch.cuda.synchronize()
 
@@ -700,15 +807,19 @@ def read_counters():
     return {"B1": ck.LAUNCHES, "B1 plain": ck.PLAIN_CALLS, "B2": ck.CORE_LAUNCHES,
             "B2 plain": ck.CORE_PLAIN_CALLS, "B3": ck.EXT_LAUNCHES,
             "B3 plain": ck.EXT_PLAIN_CALLS, "B4": ck.DF_LAUNCHES, "B4 plain": ck.DF_PLAIN_CALLS,
+            "B5": ck.MG_LAUNCHES, "B5 plain": ck.MG_PLAIN_CALLS, "B6": ck.MGT_LAUNCHES,
+            "B6 plain": ck.MGT_PLAIN_CALLS,
             "host syncs": observability.counts().get("krylov/host_syncs", 0)}
 
 
 def bypassed(counts, kernel):
-    """Whether a path run missed its matvec kernel or the refinement's B4,
-    or ran another matvec kernel or any plain version."""
+    """Whether a path run missed its matvec kernel, the refinement's B4 or
+    the V-cycle's B5 or B6, or ran another matvec kernel or any plain
+    version."""
     others = [k for k in ("B1", "B2", "B3") if k != kernel]
-    plains = [f"{k} plain" for k in ("B1", "B2", "B3", "B4")]
-    return counts[kernel] == 0 or counts["B4"] == 0 or any(counts[k] for k in others + plains)
+    plains = [f"{k} plain" for k in ("B1", "B2", "B3", "B4", "B5", "B6")]
+    missed = any(counts[k] == 0 for k in (kernel, "B4", "B5", "B6"))
+    return missed or any(counts[k] for k in others + plains)
 
 
 def large_grid_path(large, dev, card):
@@ -1000,7 +1111,7 @@ def sweep_path(card):
           f"(warm-up 2x2 grid {warm_s:.3f} s), {len(chunk_its)} chunks of <= {sweep_chunk()} "
           f"solves, converged {int(conv.sum())}/{n}, chunk max iterations {chunk_its}, chunk "
           f"seconds max {chunk_s['max']:.3f}, B1 launches {counts['B1']}, B4 launches "
-          f"{counts['B4']}, plain calls "
+          f"{counts['B4']}, B5 {counts['B5']}, B6 {counts['B6']}, plain calls "
           f"{counts['B1 plain']}, host syncs {counts['host syncs']}  [{card}]", flush=True)
     print("  converged cells (rows: alpha_s, columns: alpha_r):\n" + "\n".join(
         "  " + "".join(str(int(c)) for c in row) for row in conv), flush=True)
@@ -1196,7 +1307,8 @@ def cli_path(stack, dev, card):
               + (f"{spans['drivers/plot']:.3f}" if whole else "not drawn")
               + f" s; {n_pairs / solve_s:.3f} pairs/s (solve), {n_pairs / wall:.3f} pairs/s "
               f"(command); iterations median {int(np.median(its))} max {int(its.max())}, "
-              f"converged {int(conv.sum())}/{conv.size}, B4 launches {counts['B4']}, B1 "
+              f"converged {int(conv.sum())}/{conv.size}, B4 launches {counts['B4']}, B5 "
+              f"{counts['B5']}, B6 {counts['B6']}, B1 "
               f"launches {counts['B1']} "
               f"({counts['B1'] / n_pairs:.1f} per pair), plain calls {counts['B1 plain']}, host "
               f"syncs {counts['host syncs']}  [{card}]", flush=True)
@@ -1340,6 +1452,7 @@ def main():
     entries = check_kernels(movie, large, stack[:1].astype(np.float32), dev, smi)
     check_extended_kernel(movie, large, dev, smi, entries["el_matvec_extended"])
     check_df32_kernel(movie, large, stack[:2].astype(np.float32), dev, smi, entries["el_df32"])
+    check_mg_kernels(dev, smi, entries)
     usage = kernel_usage()
     for kernel, entry in entries.items():
         used = usage.get(os.path.basename(KERNELS[kernel][1]))

@@ -114,6 +114,15 @@ def _make_matvec(matvec_impl: str, prev, speed_alpha, remodelling_alpha, dy_mode
     raise ValueError(f"unknown matvec {matvec_impl!r}")
 
 
+def mg_route(matvec_impl: str) -> str:
+    """The multigrid route (``multigrid.ROUTES``) of a matvec, by its name:
+    the plain ``'xla'`` and ``'gspmd'`` keep the plain stages (their solves
+    may be float64, as the float64 oracles'), every kernel route (``'auto'``,
+    ``'pallas'``, ``'hybrid'``, and so the sharded and distributed solves,
+    whose factories keep the name) runs kernels B5 and B6."""
+    return "torch" if matvec_impl in ("xla", "gspmd") else "kernels"
+
+
 def solver_kwargs(solver: SolverConfig) -> dict:
     """The keyword arguments of :func:`solve_frame_pair` that a
     ``SolverConfig`` sets (``atol`` sets none, as in the JAX package)."""
@@ -224,7 +233,8 @@ def solve_frame_pair(
     mg_sweeps = 2 if max(m, n) < 500 else 4
     with _phase(phase_timer, "mg_setup"):
         if preconditioner == "multigrid":
-            hierarchy = multigrid.setup(matvec, elop.diag_blocks(pair.coeffs), m, n, dtype)
+            hierarchy = multigrid.setup(matvec, elop.diag_blocks(pair.coeffs), m, n, dtype,
+                                        route=mg_route(matvec_impl))
         elif preconditioner not in ("block_jacobi", "none"):
             raise ValueError(f"unknown preconditioner {preconditioner!r}")
 

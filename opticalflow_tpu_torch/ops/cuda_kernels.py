@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the port, their builds, wrappers and plain
 versions.
 
-Four kernels, three of them on the stencil of ``csrc/el_stencil.cuh``:
+Six kernels, three of them on the stencil of ``csrc/el_stencil.cuh``:
 
 * the fused reduced Euler-Lagrange matvec (``csrc/el_matvec.cu``), the
   Hopper counterpart of the TPU kernel
@@ -33,7 +33,22 @@ Four kernels, three of them on the stencil of ``csrc/el_stencil.cuh``:
   :func:`el_residual_df32_ref` and :func:`el_matvec_df32_ref` (the
   ``elop`` functions on views into the packed tensors), counters
   ``DF_LAUNCHES`` and ``DF_PLAIN_CALLS``.  It is built with
-  ``-fmad=false`` and equals its plain version bit for bit.
+  ``-fmad=false`` and equals its plain version bit for bit;
+* the multigrid V-cycle's smoothing sweeps and stencil apply
+  (``csrc/mg_smooth.cu``, B5) and its grid transfers
+  (``csrc/mg_transfer.cu``, B6), which have no Pallas counterpart either:
+  they replace XLA's fusion of ``opticalflow_tpu/solve/multigrid.py``'s
+  ``jacobi_sweep``, ``apply_blocks``, ``stencil_matvec``, ``restrict``
+  and ``prolong``.  Wrappers :func:`mg_smooth`, :func:`mg_smooth_fine`
+  and :func:`mg_stencil_apply` (B5, counters ``MG_LAUNCHES`` and
+  ``MG_PLAIN_CALLS``), :func:`mg_residual_restrict` and
+  :func:`mg_prolong_add` (B6, ``MGT_LAUNCHES`` and ``MGT_PLAIN_CALLS``);
+  their plain versions (``*_ref``) are the stages of ``solve.multigrid``.
+  Both are built with ``-fmad=false`` and equal their plain versions bit
+  for bit.  A level's stencil and block inverse are checked once per
+  hierarchy (:func:`mg_check_level`, from ``multigrid.setup`` and
+  ``take``, whose calls pass ``checked=True``); each call checks its
+  fields.
 
 The three matvec kernels are instances of one tiled kernel
 (``csrc/el_tiles.cuh``) with their staging rule as its parameter; none has
@@ -81,6 +96,10 @@ EXT_LAUNCHES = 0  # kernel launches by el_matvec_tiled (el_matvec_extended inclu
 EXT_PLAIN_CALLS = 0  # calls of the plain versions el_matvec_tiled_ref, el_matvec_extended_ref
 DF_LAUNCHES = 0  # kernel launches by el_residual_df32 and el_matvec_df32
 DF_PLAIN_CALLS = 0  # calls of the plain versions el_residual_df32_ref, el_matvec_df32_ref
+MG_LAUNCHES = 0  # kernel launches by mg_smooth, mg_smooth_fine and mg_stencil_apply (B5)
+MG_PLAIN_CALLS = 0  # calls of their plain versions (the *_ref functions)
+MGT_LAUNCHES = 0  # kernel launches by mg_residual_restrict and mg_prolong_add (B6)
+MGT_PLAIN_CALLS = 0  # calls of their plain versions
 BUILD_SECONDS = None  # wall time of this process's nvcc builds, if it built
 BUILD_LOG = ""  # nvcc's output of those builds (-Xptxas -v: registers, smem)
 
@@ -101,13 +120,21 @@ _TILES_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
 # B4 takes (planes, scalars, rhs_hi, rhs_lo, x_hi, x_lo, out, B, P, m, n,
 # residual, stream)
 _DF32_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# B5 takes (S, binv, x, b, y, out, B, K, M, N, damp, mode, stream); B6 (S, x,
+# b, y, e, out, B, K, Mf, Nf, Mc, Nc, mode, stream)
+_MG_SMOOTH_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                                                 ctypes.c_void_p]
+_MG_TRANSFER_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 # C entry point of each source, its argument types and the flags it adds to
 # NVCC_FLAGS: B4's error-free transforms are exact only if no product and
-# sum are contracted into a fused multiply-add
+# sum are contracted into a fused multiply-add, and B5 and B6 equal their
+# plain versions bit for bit only so
 ENTRY_POINTS = {"el_matvec.cu": ("el_matvec_reduced_fused", _PAIRS_ARGS, ()),
                 "el_matvec_plain.cu": ("el_matvec_plain_core", _PAIRS_ARGS, ()),
                 "el_matvec_ext.cu": ("el_matvec_tiled", _TILES_ARGS, ()),
-                "el_df32.cu": ("el_df32", _DF32_ARGS, ("-fmad=false",))}
+                "el_df32.cu": ("el_df32", _DF32_ARGS, ("-fmad=false",)),
+                "mg_smooth.cu": ("mg_smooth", _MG_SMOOTH_ARGS, ("-fmad=false",)),
+                "mg_transfer.cu": ("mg_transfer", _MG_TRANSFER_ARGS, ("-fmad=false",))}
 # queries a source's library may export beside its entry point, loaded
 # where it has them: B4's warps resident on one SM, (P, residual, int *out)
 QUERIES = {"el_df32.cu": {"el_df32_warps_per_sm": [ctypes.c_int, ctypes.c_int,
@@ -687,3 +714,271 @@ def el_matvec_df32(ops: DF32Operands, x: torch.Tensor) -> torch.Tensor:
     out = _launch_df32(ops, x, None)
     _count("DF_LAUNCHES")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Kernels B5 and B6: the multigrid V-cycle's smoothing sweeps, stencil
+# apply, residual-and-restrict and prolong-and-add.
+# ---------------------------------------------------------------------------
+
+# B5's modes (csrc/mg_smooth.cu)
+MG_ZERO_GUESS, MG_FINE, MG_SWEEP, MG_APPLY = 0, 1, 2, 3
+# B6's modes (csrc/mg_transfer.cu): restriction with bit 0 = S x (else y),
+# bit 1 = b minus it; prolongation with bit 0 = x plus it
+MGT_RESTRICT, MGT_PROLONG = 0, 4
+
+
+def _level_shape(S: Optional[torch.Tensor], binv: Optional[torch.Tensor]):
+    """(B, M, N) of a level's stencil S (B, 3, 3, 3, 3, M, N) and block
+    inverse binv (B, 3, 3, M, N), either of them None, or ValueError."""
+    if binv is not None:
+        if binv.dim() != 5 or tuple(binv.shape[1:3]) != (3, 3):
+            raise ValueError(f"binv must be (B, 3, 3, M, N), got {tuple(binv.shape)}")
+        B, M, N = binv.shape[0], binv.shape[3], binv.shape[4]
+        if S is not None and tuple(S.shape) != (B, 3, 3, 3, 3, M, N):
+            raise ValueError(f"S must be {(B, 3, 3, 3, 3, M, N)}, got {tuple(S.shape)}")
+        return B, M, N
+    if S.dim() != 7 or tuple(S.shape[1:5]) != (3, 3, 3, 3):
+        raise ValueError(f"S must be (B, 3, 3, 3, 3, M, N), got {tuple(S.shape)}")
+    return S.shape[0], S.shape[5], S.shape[6]
+
+
+def mg_check_level(S: Optional[torch.Tensor], binv: Optional[torch.Tensor]):
+    """(B, M, N) of a level's operands (:func:`_level_shape`), checked for
+    B5 and B6 as ``multigrid.setup`` and ``take`` check them, once per
+    hierarchy: on CUDA, float32, contiguous and on one device, or
+    ValueError / TypeError."""
+    B, M, N = _level_shape(S, binv)
+    tensors = {name: t for name, t in (("S", S), ("binv", binv)) if t is not None}
+    if not _on_cpu(*tensors.values()):
+        _check_operands(next(iter(tensors.values())).device, **tensors)
+        _check_contiguous(**tensors)
+    return B, M, N
+
+
+def _field_k(name: str, t: torch.Tensor, B: int, M: int, N: int, k_axis: bool) -> int:
+    """K of a (B, 3, M, N) field (1) or, with ``k_axis``, a (B, K, 3, M, N)
+    stack, or ValueError."""
+    if t.dim() == 4 and tuple(t.shape) == (B, 3, M, N):
+        return 1
+    if k_axis and t.dim() == 5 and t.shape[0] == B and tuple(t.shape[2:]) == (3, M, N):
+        return t.shape[1]
+    raise ValueError(f"{name} must be {(B, 3, M, N)}{' or (B, K, 3, M, N)' if k_axis else ''}, "
+                     f"got {tuple(t.shape)}")
+
+
+def _fields_k(B: int, M: int, N: int, k_axis: bool, **fields: Optional[torch.Tensor]) -> int:
+    """The one K of the given fields (None skipped), or ValueError."""
+    ks = {_field_k(name, t, B, M, N, k_axis) for name, t in fields.items() if t is not None}
+    shapes = {t.dim() for t in fields.values() if t is not None}
+    if len(ks) > 1 or len(shapes) > 1:
+        raise ValueError(f"the fields must have one shape, got "
+                         f"{[tuple(t.shape) for t in fields.values() if t is not None]}")
+    return ks.pop()
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_mg(entry: str, counter: str, device: torch.device, K: int, out: torch.Tensor,
+               args: tuple) -> torch.Tensor:
+    """Launch B5 or B6 (``entry``) on the current stream of ``device``;
+    raises on a failed launch, else counts it."""
+    rc = _call(load_library()[entry], device, K, args)
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {rc}")
+    _count(counter)
+    return out
+
+
+def _cuda_fields(device: torch.device, **fields: Optional[torch.Tensor]) -> None:
+    """The per-call checks of B5's and B6's fields: float32, contiguous, on
+    the level operands' CUDA ``device``."""
+    given = {name: t for name, t in fields.items() if t is not None}
+    _check_operands(device, **given)
+    _check_contiguous(**given)
+
+
+def _smooth_call(mode: int, S, binv, x, b, y, damp: float, checked: bool) -> torch.Tensor:
+    """Check and launch one B5 sweep (``mode`` zero guess, fine or sweep)."""
+    B, M, N = (_level_shape if checked else mg_check_level)(S, binv)
+    _fields_k(B, M, N, False, x=x, b=b, y=y)
+    _cuda_fields(binv.device, x=x, b=b, y=y)
+    out = b.new_empty(b.shape)
+    return _launch_mg("mg_smooth", "MG_LAUNCHES", b.device, 1, out,
+                      (_ptr(S), binv.data_ptr(), _ptr(x), b.data_ptr(), _ptr(y), out.data_ptr(),
+                       B, 1, M, N, damp, mode))
+
+
+def mg_smooth_ref(S: Optional[torch.Tensor], binv: torch.Tensor, x: Optional[torch.Tensor],
+                  b: torch.Tensor, damp: float) -> torch.Tensor:
+    """Plain version of B5's sweep on a probed level:
+    ``multigrid.smooth_level``, x + damp Binv (b - S x), or damp Binv b for
+    ``x=None`` (then ``S`` may be None); fields (B, 3, M, N)."""
+    from opticalflow_tpu_torch.solve import multigrid  # multigrid imports this module
+
+    B, M, N = _level_shape(S, binv)
+    _fields_k(B, M, N, False, x=x, b=b)
+    _count("MG_PLAIN_CALLS")
+    return multigrid.smooth_level(S, binv, x, b, damp)
+
+
+def mg_smooth(S: Optional[torch.Tensor], binv: torch.Tensor, x: Optional[torch.Tensor],
+              b: torch.Tensor, damp: float, checked: bool = False) -> torch.Tensor:
+    """One damped block-Jacobi sweep of a probed level
+    (:func:`mg_smooth_ref`): CUDA tensors go through kernel B5 (float32,
+    contiguous; ``checked``: S and binv were checked by
+    :func:`mg_check_level`, so only their shapes are compared here), bit for
+    bit its plain version; CPU tensors through the plain version."""
+    if _on_cpu(*(t for t in (S, binv, x, b) if t is not None)):
+        return mg_smooth_ref(S, binv, x, b, damp)
+    if x is None:
+        return _smooth_call(MG_ZERO_GUESS, None, binv, None, b, None, damp, checked)
+    if S is None:
+        raise ValueError("a sweep from x needs the level's stencil S")
+    return _smooth_call(MG_SWEEP, S, binv, x, b, None, damp, checked)
+
+
+def mg_smooth_fine_ref(binv: torch.Tensor, x: Optional[torch.Tensor], b: torch.Tensor,
+                       y: Optional[torch.Tensor], damp: float) -> torch.Tensor:
+    """Plain version of B5's level-0 epilogue: ``multigrid.smooth_fine``, x +
+    damp Binv (b - y) around the fine matvec's output y = A x, or damp Binv b
+    for ``x=None``."""
+    from opticalflow_tpu_torch.solve import multigrid
+
+    B, M, N = _level_shape(None, binv)
+    _fields_k(B, M, N, False, x=x, b=b, y=y)
+    if (x is None) != (y is None):
+        raise ValueError("x and y are given together (a sweep) or neither (the zero guess)")
+    _count("MG_PLAIN_CALLS")
+    return multigrid.smooth_fine(binv, x, b, y, damp)
+
+
+def mg_smooth_fine(binv: torch.Tensor, x: Optional[torch.Tensor], b: torch.Tensor,
+                   y: Optional[torch.Tensor], damp: float, checked: bool = False) -> torch.Tensor:
+    """The level-0 sweep around the fine matvec of
+    :func:`mg_smooth_fine_ref`: CUDA tensors go through kernel B5, bit for
+    bit its plain version; CPU tensors through the plain version."""
+    if _on_cpu(*(t for t in (binv, x, b, y) if t is not None)):
+        return mg_smooth_fine_ref(binv, x, b, y, damp)
+    if (x is None) != (y is None):
+        raise ValueError("x and y are given together (a sweep) or neither (the zero guess)")
+    mode = MG_ZERO_GUESS if x is None else MG_FINE
+    return _smooth_call(mode, None, binv, x, b, y, damp, checked)
+
+
+def mg_stencil_apply_ref(S: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Plain version of B5's stencil apply: ``multigrid.stencil_matvec``, S u
+    for (B, 3, M, N) or (B, K, 3, M, N) fields, S broadcast over K."""
+    from opticalflow_tpu_torch.solve import multigrid
+
+    B, M, N = _level_shape(S, None)
+    _field_k("u", u, B, M, N, True)
+    _count("MG_PLAIN_CALLS")
+    return multigrid.stencil_matvec(S, u)
+
+
+def mg_stencil_apply(S: torch.Tensor, u: torch.Tensor, checked: bool = False) -> torch.Tensor:
+    """S u of :func:`mg_stencil_apply_ref` (a probed level's operator, the
+    probes' K = 27 and the coarsest operator's K = 3 m n included): CUDA
+    tensors go through kernel B5, bit for bit its plain version; CPU tensors
+    through the plain version."""
+    if _on_cpu(S, u):
+        return mg_stencil_apply_ref(S, u)
+    B, M, N = (_level_shape if checked else mg_check_level)(S, None)
+    K = _field_k("u", u, B, M, N, True)
+    _cuda_fields(S.device, u=u)
+    out = u.new_empty(u.shape)
+    return _launch_mg("mg_smooth", "MG_LAUNCHES", u.device, K, out,
+                      (S.data_ptr(), None, u.data_ptr(), None, None, out.data_ptr(), B, K, M, N,
+                       0.0, MG_APPLY))
+
+
+def mg_residual_restrict_ref(S: Optional[torch.Tensor], x: Optional[torch.Tensor],
+                             b: Optional[torch.Tensor], y: Optional[torch.Tensor],
+                             coarse_shape) -> torch.Tensor:
+    """Plain version of B6's restriction: ``multigrid.residual_restrict``, R
+    (b - S x) with ``S``, R (b - y) with ``y``, and without ``b`` R (S x) or
+    R y; fields (B, [K,] 3, M, N), the result (B, [K,] 3, Mc, Nc)."""
+    from opticalflow_tpu_torch.solve import multigrid
+
+    _check_restrict(S, x, b, y, coarse_shape)
+    _count("MGT_PLAIN_CALLS")
+    return multigrid.residual_restrict(S, x, b, y, coarse_shape)
+
+
+def _check_restrict(S, x, b, y, coarse_shape, checked: bool = False):
+    """(B, K, M, N, Mc, Nc, mode) of a B6 restriction, or ValueError."""
+    if (S is None) == (y is None) or (S is None) != (x is None):
+        raise ValueError("give S and x (R of S x) or y (R of y), not both")
+    fine = x if S is not None else y
+    if fine.dim() not in (4, 5):
+        raise ValueError(f"fields must be (B, [K,] 3, M, N), got {tuple(fine.shape)}")
+    B, M, N = fine.shape[0], fine.shape[-2], fine.shape[-1]
+    if S is not None:
+        B, M, N = (_level_shape if checked else mg_check_level)(S, None)
+    K = _fields_k(B, M, N, True, x=x, b=b, y=y)
+    if tuple(coarse_shape) != ((M + 1) // 2, (N + 1) // 2):
+        raise ValueError(f"the coarse grid of {M}x{N} is {((M + 1) // 2, (N + 1) // 2)}, got "
+                         f"{tuple(coarse_shape)}")
+    mode = MGT_RESTRICT + int(S is not None) + 2 * int(b is not None)
+    return B, K, M, N, coarse_shape[0], coarse_shape[1], mode
+
+
+def mg_residual_restrict(S: Optional[torch.Tensor], x: Optional[torch.Tensor],
+                         b: Optional[torch.Tensor], y: Optional[torch.Tensor], coarse_shape,
+                         checked: bool = False) -> torch.Tensor:
+    """The restricted residual of :func:`mg_residual_restrict_ref`: CUDA
+    tensors go through kernel B6 (one launch: each block computes the
+    residual of its fine tile and restricts it), bit for bit its plain
+    version; CPU tensors through the plain version."""
+    tensors = [t for t in (S, x, b, y) if t is not None]
+    if _on_cpu(*tensors):
+        return mg_residual_restrict_ref(S, x, b, y, coarse_shape)
+    B, K, M, N, Mc, Nc, mode = _check_restrict(S, x, b, y, coarse_shape, checked)
+    fine = x if S is not None else y
+    _cuda_fields((S if S is not None else fine).device, x=x, b=b, y=y)
+    out = fine.new_empty(fine.shape[:-2] + (Mc, Nc))
+    return _launch_mg("mg_transfer", "MGT_LAUNCHES", fine.device, K, out,
+                      (_ptr(S), _ptr(x), _ptr(b), _ptr(y), None, out.data_ptr(), B, K, M, N, Mc,
+                       Nc, mode))
+
+
+def _check_prolong(x, e, fine_shape):
+    """(B, K, M, N, Mc, Nc, mode) of a B6 prolongation, or ValueError."""
+    if e.dim() not in (4, 5) or e.shape[-3] != 3:
+        raise ValueError(f"e must be (B, [K,] 3, Mc, Nc), got {tuple(e.shape)}")
+    M, N = fine_shape
+    Mc, Nc = e.shape[-2:]
+    if (Mc, Nc) != ((M + 1) // 2, (N + 1) // 2):
+        raise ValueError(f"the coarse grid of {M}x{N} is {((M + 1) // 2, (N + 1) // 2)}, got "
+                         f"{(Mc, Nc)}")
+    if x is not None and tuple(x.shape) != tuple(e.shape[:-2]) + (M, N):
+        raise ValueError(f"x must be {tuple(e.shape[:-2]) + (M, N)}, got {tuple(x.shape)}")
+    K = e.shape[1] if e.dim() == 5 else 1
+    return e.shape[0], K, M, N, Mc, Nc, MGT_PROLONG + int(x is not None)
+
+
+def mg_prolong_add_ref(x: Optional[torch.Tensor], e: torch.Tensor, fine_shape) -> torch.Tensor:
+    """Plain version of B6's prolongation: ``multigrid.prolong_add``, x + P e,
+    or P e with ``x=None``; e (B, [K,] 3, Mc, Nc)."""
+    from opticalflow_tpu_torch.solve import multigrid
+
+    _check_prolong(x, e, fine_shape)
+    _count("MGT_PLAIN_CALLS")
+    return multigrid.prolong_add(x, e, fine_shape)
+
+
+def mg_prolong_add(x: Optional[torch.Tensor], e: torch.Tensor, fine_shape) -> torch.Tensor:
+    """x + P e of :func:`mg_prolong_add_ref`: CUDA tensors go through kernel
+    B6, bit for bit its plain version; CPU tensors through the plain
+    version."""
+    if _on_cpu(*(t for t in (x, e) if t is not None)):
+        return mg_prolong_add_ref(x, e, fine_shape)
+    B, K, M, N, Mc, Nc, mode = _check_prolong(x, e, fine_shape)
+    _cuda_fields(e.device, x=x, e=e)
+    out = e.new_empty(tuple(e.shape[:-2]) + (M, N))
+    return _launch_mg("mg_transfer", "MGT_LAUNCHES", e.device, K, out,
+                      (None, _ptr(x), None, None, e.data_ptr(), out.data_ptr(), B, K, M, N, Mc,
+                       Nc, mode))

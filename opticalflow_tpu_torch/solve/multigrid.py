@@ -7,20 +7,32 @@ grid.  Fields are ``(B, 3, M, N)``, or ``(B, K, 3, M, N)`` for a stack of
 K probes per pair; each pair has its own hierarchy (stencil tensors carry
 the batch axis).
 
-The fine level's matvec is whatever the caller passes — in the solve, the
-fused CUDA kernel — and the same matvec is probed for the first coarse
-operator, so probing also runs on the kernel (with K = 27).  With the
+The fine level's matvec is whatever the caller passes — in the solve, a
+CUDA matvec kernel (B1, B2 or B3) — and the same matvec is probed for the
+first coarse operator (with K = 27).  Below it the V-cycle and the probes
+run in stages (:class:`Stages`): a probed level's sweep
+(:func:`smooth_level`), the fine level's sweep around its matvec's output
+(:func:`smooth_fine`), the residual restricted to the next level
+(:func:`residual_restrict`), the correction prolonged and added
+(:func:`prolong_add`) and the stencil apply (:func:`stencil_matvec`).  A
+hierarchy carries its route (:data:`ROUTES`): ``'kernels'``, kernels B5
+and B6 (``ops.cuda_kernels.mg_*``: ~30 launches a V-cycle at 126² in
+place of ~480 torch ops; the stages above are their plain versions, which
+they equal bit for bit and which run on CPU tensors), or ``'torch'``, the
+stages themselves (any dtype; the solve's float64 oracles).  With the
 kernel at level 0, :func:`v_cycle` is the counterpart of both the JAX
 ``v_cycle`` and ``v_cycle_aligned`` (which its docstring calls identical).
 The 4-colour block Gauss-Seidel smoother (``smoother='gs'``,
-:func:`gs_sweep` over :func:`color_masks`) is JAX's too; an unknown
-smoother name raises ``ValueError`` where JAX falls through to GS.
-``v_cycle_padded`` is not ported: there is no container layout.
+:func:`gs_sweep` over :func:`color_masks`) is JAX's too, torch ops around
+the levels' operators; an unknown smoother name raises ``ValueError``
+where JAX falls through to GS.  ``v_cycle_padded`` is not ported: there is
+no container layout.
 
 Precision: nothing here goes through a matrix product, so no TF32 path is
 reachable.  The 3x3 contractions of the block inverse and its application
-are unrolled plane multiply-adds, and the stencil apply is an elementwise
-product summed over its 27 taps, all in the working dtype.
+are unrolled plane multiply-adds, and the stencil apply sums its 27
+products one at a time in JAX's order, every product and sum rounded
+alone, in the working dtype: a fixed order, which the kernels reproduce.
 """
 
 from __future__ import annotations
@@ -30,6 +42,8 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from opticalflow_tpu_torch.ops import cuda_kernels
 
 
 # ---------------------------------------------------------------------------
@@ -80,16 +94,22 @@ def coarse_dims(m: int, n: int) -> Tuple[int, int]:
 def stencil_matvec(S: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """y[o,i,j] = sum_{q,di,dj} S[o,q,di,dj,i,j] * u[q,i+di-1,j+dj-1] with
     zero padding outside the grid.  S: (B, 3, 3, 3, 3, M, N); u: (B, 3, M,
-    N) or (B, K, 3, M, N)."""
-    B, M, N = S.shape[0], S.shape[-2], S.shape[-1]
+    N) or (B, K, 3, M, N), S broadcast over K.
+
+    The 27 terms are summed one at a time in JAX's order (q, then di, then
+    dj; ``opticalflow_tpu/solve/multigrid.py::stencil_matvec``), each
+    product and sum rounded alone, the three output fields at once: a fixed
+    order, which kernel B5 reproduces bit for bit."""
+    M, N = S.shape[-2], S.shape[-1]
     upad = F.pad(u, (1, 1, 1, 1))
-    taps = torch.stack(
-        [upad[..., di : di + M, dj : dj + N] for di in range(3) for dj in range(3)], dim=-3
-    )  # (B, [K,] 3, 9, M, N)
-    taps = taps.flatten(-4, -3)  # (B, [K,] 27, M, N), index q*9 + di*3 + dj
-    lead = (B,) + (1,) * (u.dim() - 4)
-    out = [(S[:, o].reshape(lead + (27, M, N)) * taps).sum(dim=-3) for o in range(3)]
-    return torch.stack(out, dim=-3)
+    Sk = S if u.dim() == 4 else S[:, None]  # (B, [1,] 3, 3, 3, 3, M, N)
+    acc = None
+    for q in range(3):
+        for di in range(3):
+            for dj in range(3):
+                term = Sk[..., q, di, dj, :, :] * upad[..., q : q + 1, di : di + M, dj : dj + N]
+                acc = term if acc is None else acc + term
+    return acc
 
 
 def probe_stencil(matvec: Callable, batch: int, m: int, n: int, dtype, device) -> torch.Tensor:
@@ -184,15 +204,43 @@ def apply_blocks(binv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     ], dim=1)
 
 
-def jacobi_sweep(matvec, binv, x, b, damp: float = 0.7, sweeps: int = 2):
-    """Damped block-Jacobi smoothing: x += damp * Binv (b - A x); ``x=None``
-    is a zero initial guess (its first residual is b itself, as A 0 = 0)."""
-    for _ in range(sweeps):
-        if x is None:
-            x = damp * apply_blocks(binv, b)
-        else:
-            x = x + damp * apply_blocks(binv, b - matvec(x))
-    return x
+def smooth_level(S: Optional[torch.Tensor], binv: torch.Tensor, x: Optional[torch.Tensor],
+                 b: torch.Tensor, damp: float) -> torch.Tensor:
+    """One damped block-Jacobi sweep on a probed level, x + damp * Binv (b -
+    S x); ``x=None`` is the zero initial guess, damp * Binv b (A 0 = 0, so
+    ``S`` is not read).  The plain version of kernel B5's sweep."""
+    return smooth_fine(binv, x, b, None if x is None else stencil_matvec(S, x), damp)
+
+
+def smooth_fine(binv: torch.Tensor, x: Optional[torch.Tensor], b: torch.Tensor,
+                y: Optional[torch.Tensor], damp: float) -> torch.Tensor:
+    """The sweep of the fine level around its matvec's output y = A x: x +
+    damp * Binv (b - y); ``x=None`` (and ``y=None``) is the zero initial
+    guess.  The plain version of kernel B5's level-0 epilogue."""
+    if x is None:
+        return damp * apply_blocks(binv, b)
+    return x + damp * apply_blocks(binv, b - y)
+
+
+def residual_restrict(S: Optional[torch.Tensor], x: Optional[torch.Tensor],
+                      b: Optional[torch.Tensor], y: Optional[torch.Tensor],
+                      coarse_shape: Tuple[int, int]) -> torch.Tensor:
+    """The residual restricted to the next level: R (b - S x) with ``S``,
+    R (b - y) with the fine matvec's output ``y``; without ``b``, R (S x) or
+    R y (the coarse operators' probes).  Fields (B, [K,] 3, M, N), S
+    broadcast over K.  The plain version of kernel B6's restriction."""
+    if S is not None:
+        y = stencil_matvec(S, x)
+    return restrict(y if b is None else b - y, coarse_shape)
+
+
+def prolong_add(x: Optional[torch.Tensor], e: torch.Tensor,
+                fine_shape: Tuple[int, int]) -> torch.Tensor:
+    """The coarse correction prolonged and added, x + P e; P e with
+    ``x=None`` (the coarse operators' probes).  The plain version of kernel
+    B6's prolongation."""
+    fine = prolong(e, fine_shape)
+    return fine if x is None else x + fine
 
 
 def gs_sweep(matvec, binv, masks, x, b, reverse: bool = False):
@@ -223,11 +271,47 @@ class MGHierarchy(NamedTuple):
     levels: Tuple[MGLevel, ...]
     coarse_solve: Callable  # dense exact solve at the bottom
     coarse_lu: Tuple[torch.Tensor, torch.Tensor]  # its (LU, pivots), one per pair
+    route: str = "kernels"  # which stages run the levels: a key of ROUTES
+
+
+class Stages(NamedTuple):
+    """The operations of a V-cycle and of the coarse operators' probes below
+    the fine level's matvec (the plain functions above, or the kernels'
+    wrappers, which run the same functions on CPU tensors)."""
+
+    stencil_apply: Callable  # (S, u) -> S u, any K
+    smooth: Callable  # (S, binv, x, b, damp): smooth_level
+    smooth_fine: Callable  # (binv, x, b, y, damp): smooth_fine
+    residual_restrict: Callable  # (S, x, b, y, coarse_shape)
+    prolong_add: Callable  # (x, e, fine_shape)
+
+
+# 'torch': the plain functions (the route of matvec 'xla' and 'gspmd', whose
+# solves may be float64); 'kernels': kernels B5 and B6 (cuda_kernels), whose
+# S and binv setup and take have checked once (``checked=True``).
+ROUTES = {
+    "torch": Stages(stencil_matvec, smooth_level, smooth_fine, residual_restrict, prolong_add),
+    "kernels": Stages(
+        functools.partial(cuda_kernels.mg_stencil_apply, checked=True),
+        functools.partial(cuda_kernels.mg_smooth, checked=True),
+        functools.partial(cuda_kernels.mg_smooth_fine, checked=True),
+        functools.partial(cuda_kernels.mg_residual_restrict, checked=True),
+        cuda_kernels.mg_prolong_add),
+}
 
 
 def _planar(blocks: torch.Tensor) -> torch.Tensor:
     """(B, M, N, 3, 3) -> (B, 3, 3, M, N), contiguous."""
     return blocks.permute(0, 3, 4, 1, 2).contiguous()
+
+
+def _probed_level(route: str, S: torch.Tensor, binv: torch.Tensor,
+                  shape: Tuple[int, int]) -> MGLevel:
+    """A probed level's operator and operands; a kernel route checks S and
+    binv here, once for every call of the level's kernels."""
+    if route == "kernels":
+        cuda_kernels.mg_check_level(S, binv)
+    return MGLevel(functools.partial(ROUTES[route].stencil_apply, S), binv, shape, S)
 
 
 def setup(
@@ -238,31 +322,42 @@ def setup(
     dtype,
     min_size: int = 8,
     max_levels: int = 16,
+    route: str = "kernels",
 ) -> MGHierarchy:
     """Build the Galerkin hierarchy below a batched black-box fine operator.
 
     ``fine_matvec`` takes (B, 3, m, n) and (B, K, 3, m, n) stacks;
     ``fine_diag_blocks`` (B, m, n, 3, 3) are its diagonal blocks (known
-    analytically, so the finest level is never probed).
+    analytically, so the finest level is never probed).  ``route``: which
+    stages run below the fine matvec, here and in :func:`v_cycle`:
+    ``'kernels'`` (kernels B5 and B6 on CUDA tensors, their plain versions
+    on CPU tensors) or ``'torch'`` (the plain functions, any dtype).
     """
+    if route not in ROUTES:
+        raise ValueError(f"unknown route {route!r}; expected one of {tuple(ROUTES)}")
+    stages = ROUTES[route]
     B = fine_diag_blocks.shape[0]
     device = fine_diag_blocks.device
     levels: List[MGLevel] = [
         MGLevel(matvec=fine_matvec, binv=_planar(invert_blocks(fine_diag_blocks)), shape=(m, n))
     ]
-    matvec = fine_matvec
+    if route == "kernels":
+        cuda_kernels.mg_check_level(None, levels[0].binv)
+    matvec, S = fine_matvec, None
     while min(m, n) > min_size and len(levels) < max_levels:
         mc, nc = coarse_dims(m, n)
 
-        def coarse_mv(u_c, matvec_f=matvec, fshape=(m, n), cshape=(mc, nc)):
-            return restrict(matvec_f(prolong(u_c, fshape)), cshape)
+        def coarse_mv(u_c, matvec_f=matvec, S_f=S, fshape=(m, n), cshape=(mc, nc)):
+            u_f = stages.prolong_add(None, u_c, fshape)
+            if S_f is None:  # below the fine level: its matvec, then R
+                return stages.residual_restrict(None, None, None, matvec_f(u_f), cshape)
+            return stages.residual_restrict(S_f, u_f, None, None, cshape)
 
-        S_c = probe_stencil(coarse_mv, B, mc, nc, dtype, device)
-        matvec = functools.partial(stencil_matvec, S_c)
-        blocks = S_c[:, :, :, 1, 1].permute(0, 3, 4, 1, 2)  # (B, mc, nc, 3, 3)
+        S = probe_stencil(coarse_mv, B, mc, nc, dtype, device)
+        blocks = S[:, :, :, 1, 1].permute(0, 3, 4, 1, 2)  # (B, mc, nc, 3, 3)
         m, n = mc, nc
-        levels.append(MGLevel(matvec=matvec, binv=_planar(invert_blocks(blocks)), shape=(m, n),
-                              stencil=S_c))
+        levels.append(_probed_level(route, S, _planar(invert_blocks(blocks)), (m, n)))
+        matvec = levels[-1].matvec
 
     # Materialise + LU-factor the coarsest operator (tiny), one per pair.
     n_unk = 3 * m * n
@@ -270,7 +365,7 @@ def setup(
     cols = matvec(eye.expand(B, n_unk, 3, m, n).contiguous()).reshape(B, n_unk, n_unk)
     lu, piv = torch.linalg.lu_factor(cols.transpose(-1, -2))
     return MGHierarchy(levels=tuple(levels), coarse_solve=functools.partial(_lu_solve, lu, piv),
-                       coarse_lu=(lu, piv))
+                       coarse_lu=(lu, piv), route=route)
 
 
 def _lu_solve(lu: torch.Tensor, piv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -281,38 +376,51 @@ def _lu_solve(lu: torch.Tensor, piv: torch.Tensor, b: torch.Tensor) -> torch.Ten
 
 def take(h: MGHierarchy, idx: torch.Tensor, fine_matvec: Callable) -> MGHierarchy:
     """The hierarchy of the pairs ``idx`` of ``h`` alone, on ``fine_matvec``
-    (the fine operator of those pairs): the same levels, sliced, with no
-    probing or factoring."""
+    (the fine operator of those pairs) and ``h``'s route: the same levels,
+    sliced, with no probing or factoring."""
     fine = h.levels[0]
     levels = [MGLevel(fine_matvec, fine.binv.index_select(0, idx), fine.shape)]
+    if h.route == "kernels":
+        cuda_kernels.mg_check_level(None, levels[0].binv)
     for level in h.levels[1:]:
-        S = level.stencil.index_select(0, idx)
-        levels.append(MGLevel(functools.partial(stencil_matvec, S),
-                              level.binv.index_select(0, idx), level.shape, S))
+        levels.append(_probed_level(h.route, level.stencil.index_select(0, idx),
+                                    level.binv.index_select(0, idx), level.shape))
     lu, piv = (t.index_select(0, idx) for t in h.coarse_lu)
-    return MGHierarchy(tuple(levels), functools.partial(_lu_solve, lu, piv), (lu, piv))
+    return MGHierarchy(tuple(levels), functools.partial(_lu_solve, lu, piv), (lu, piv), h.route)
 
 
 def _descend(h: MGHierarchy, lvl: int, b_l: torch.Tensor, n_smooth: int, smoother: str,
              damp: float, sweeps: int) -> torch.Tensor:
-    """Recursive V-cycle descent from level ``lvl`` (zero initial guess)."""
+    """Recursive V-cycle descent from level ``lvl`` (zero initial guess).
+    Level 0 runs the caller's matvec and the stages around its output; a
+    probed level runs the stages on its stencil alone."""
     if lvl == len(h.levels) - 1:
         return h.coarse_solve(b_l)
-    level = h.levels[lvl]
+    level, stages = h.levels[lvl], ROUTES[h.route]
+    S = level.stencil  # None at level 0
 
     def smooth(x, reverse):
-        if smoother == "jacobi":
-            return jacobi_sweep(level.matvec, level.binv, x, b_l, damp=damp, sweeps=sweeps)
-        masks = color_masks(*level.shape, device=b_l.device)
-        return gs_sweep(level.matvec, level.binv, masks, x, b_l, reverse=reverse)
+        if smoother == "gs":
+            masks = color_masks(*level.shape, device=b_l.device)
+            return gs_sweep(level.matvec, level.binv, masks, x, b_l, reverse=reverse)
+        for _ in range(sweeps):
+            if S is not None:
+                x = stages.smooth(S, level.binv, x, b_l, damp)
+            else:
+                y = None if x is None else level.matvec(x)
+                x = stages.smooth_fine(level.binv, x, b_l, y, damp)
+        return x
 
     x = None
     for _ in range(n_smooth):
         x = smooth(x, reverse=False)
-    r = b_l - level.matvec(x)
     nxt = h.levels[lvl + 1]
-    e = _descend(h, lvl + 1, restrict(r, nxt.shape), n_smooth, smoother, damp, sweeps)
-    x = x + prolong(e, level.shape)
+    if S is not None:
+        r_c = stages.residual_restrict(S, x, b_l, None, nxt.shape)
+    else:
+        r_c = stages.residual_restrict(None, None, b_l, level.matvec(x), nxt.shape)
+    e = _descend(h, lvl + 1, r_c, n_smooth, smoother, damp, sweeps)
+    x = stages.prolong_add(x, e, level.shape)
     for _ in range(n_smooth):
         x = smooth(x, reverse=True)
     return x
@@ -324,7 +432,10 @@ def v_cycle(h: MGHierarchy, b: torch.Tensor, n_smooth: int = 1, smoother: str = 
     usable as a Krylov preconditioner.  ``smoother``: ``'jacobi'`` (damped
     block-Jacobi, ``sweeps`` of ``damp`` each) or ``'gs'`` (4-colour block
     Gauss-Seidel, colours reversed on the way up); anything else raises
-    ``ValueError``."""
+    ``ValueError``.  On the ``'kernels'`` route a Jacobi V-cycle is, per
+    level, one B5 launch a sweep (after the fine matvec at level 0), one B6
+    residual-and-restrict and one B6 prolong-and-add, and the coarsest LU
+    solve."""
     if smoother not in SMOOTHERS:
         raise ValueError(f"unknown smoother {smoother!r}; expected one of {SMOOTHERS}")
     return _descend(h, 0, b, n_smooth, smoother, damp, sweeps)

@@ -17,6 +17,8 @@ them:
 * ``bench``: the bench movie (13 frames of 256x256, blob width 20, sigma 3,
   v = (0.15, 0.1), x100 through float32), two-pass, alpha 1000 / 1000;
 * ``large``: the 1024x1024 pair (blob width 80), the default solver;
+* ``hybrid``: the same pair with ``matvec='hybrid'`` (kernel B2 and the
+  boundary ring);
 * ``cli``: the command line's 512x512 stack (blob width 40, integer counts
   of peak 100), its first 11 frames: 10 pairs in sequence, FGMRES
   (``--cli-pairs 50``: all 51 frames, the 50 pairs chip_smoke.py's command
@@ -28,10 +30,16 @@ them:
 
 ``--paths`` runs only the paths named; ``--no-phase-timer`` times the
 walls alone, with no device sync between phases, as chip_smoke.py times
-its paths.  Prints one line per path with each version's median wall
+its paths.  ``--torch-stages`` adds a third version, ``stages``: this
+checkout with every multigrid hierarchy on the ``'torch'`` route (the
+plain stages as torch ops in place of kernels B5 and B6, which they equal
+bit for bit, so the same iterations), in turns other, this, stages,
+stages, this, other and the sweep other, this, stages: this against
+stages is the kernels' gain at equal iterations, stages against other
+the rest of the change.  Prints one line per path with each version's median wall
 time, phase split, refinement share, iterations, converged count and
-kernel launches (B4's where the version has it), and the card's name and
-power limit.
+kernel launches (B4's, B5's and B6's where the version has them), and the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -46,7 +54,7 @@ import sys
 import time
 from collections import defaultdict
 
-QUICK, SWEEP = ("bench", "large", "cli"), ("sweep",)
+QUICK, SWEEP = ("bench", "large", "hybrid", "cli"), ("sweep",)
 ALPHA = 1000.0
 
 
@@ -63,10 +71,12 @@ def _movie(n_frames, dim, counts=False):
     return (movie * 100.0).astype(np.float32)
 
 
-def worker(paths, cli_pairs: int = 10, timed_phases: bool = True) -> None:
+def worker(paths, cli_pairs: int = 10, timed_phases: bool = True,
+           torch_stages: bool = False) -> None:
     """Runs ``paths`` with the package found first on the path; prints one
     JSON object {path: {wall, phases, iterations, converged, pairs, counts}}
-    (phases empty without ``timed_phases``)."""
+    (phases empty without ``timed_phases``).  ``torch_stages``: every
+    multigrid hierarchy on the ``'torch'`` route."""
     import numpy as np
     import torch
 
@@ -76,6 +86,8 @@ def worker(paths, cli_pairs: int = 10, timed_phases: bool = True) -> None:
 
     dev = torch.device("cuda", 0)
     ck.load_library()
+    if torch_stages:
+        variational.mg_route = lambda matvec_impl: "torch"
     phases = defaultdict(float)
 
     @contextlib.contextmanager
@@ -117,6 +129,8 @@ def worker(paths, cli_pairs: int = 10, timed_phases: bool = True) -> None:
 
     runs = {"bench": lambda: movie_solve(_movie(13, 256), "two-pass", SolverConfig()),
             "large": lambda: movie_solve(_movie(2, 1024), "sequential", SolverConfig()),
+            "hybrid": lambda: movie_solve(_movie(2, 1024), "sequential",
+                                          SolverConfig(matvec="hybrid")),
             "cli": lambda: movie_solve(_movie(51, 512, counts=True)[:cli_pairs + 1], "sequential",
                                        SolverConfig()),
             "sweep": lambda: sweep_solve(_movie(2, 128), SolverConfig(rtol=1e-6))}
@@ -124,7 +138,8 @@ def worker(paths, cli_pairs: int = 10, timed_phases: bool = True) -> None:
     out = {}
     for path in paths:
         phases.clear()
-        counters = ("LAUNCHES", "CORE_LAUNCHES", "EXT_LAUNCHES", "DF_LAUNCHES")
+        counters = ("LAUNCHES", "CORE_LAUNCHES", "EXT_LAUNCHES", "DF_LAUNCHES", "MG_LAUNCHES",
+                    "MGT_LAUNCHES")
         before = {c: getattr(ck, c, 0) for c in counters}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -138,10 +153,11 @@ def worker(paths, cli_pairs: int = 10, timed_phases: bool = True) -> None:
     print(json.dumps(out), flush=True)
 
 
-def run(tree: str, paths, cli_pairs: int, timed_phases: bool) -> dict:
+def run(tree: str, paths, cli_pairs: int, timed_phases: bool, torch_stages: bool = False) -> dict:
     """One worker process with ``tree``'s package first on the path."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
-    flags = ["--cli-pairs", str(cli_pairs)] + ([] if timed_phases else ["--no-phase-timer"])
+    flags = (["--cli-pairs", str(cli_pairs)] + ([] if timed_phases else ["--no-phase-timer"])
+             + (["--torch-stages"] if torch_stages else []))
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), *flags, "--worker", *paths],
                           env=env, capture_output=True, text=True, check=True)
     return json.loads(proc.stdout.strip().splitlines()[-1])
@@ -155,25 +171,30 @@ def main(argv=None) -> int:
                         metavar="1..50", help="pairs of the cli path (default 10)")
     parser.add_argument("--no-phase-timer", dest="timed_phases", action="store_false",
                         help="walls alone, no device sync between phases")
+    parser.add_argument("--torch-stages", action="store_true",
+                        help="also this checkout with the multigrid on its plain stages")
     parser.add_argument("--worker", nargs="+", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.worker:
-        worker(args.worker, args.cli_pairs, args.timed_phases)
+        worker(args.worker, args.cli_pairs, args.timed_phases, args.torch_stages)
         return 0
     this = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    trees = {"other": args.other_tree, "this": this}
+    trees = {"other": args.other_tree, "this": this, "stages": this}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     quick = [p for p in QUICK if p in args.paths]
     sweep = [p for p in SWEEP if p in args.paths]
-    runs = {"other": [], "this": []}
-    for name in ("other", "this", "this", "other") if quick else ():
-        runs[name].append(run(trees[name], quick, args.cli_pairs, args.timed_phases))
-    for name in ("other", "this") if sweep else ():
-        runs[name].append(run(trees[name], sweep, args.cli_pairs, args.timed_phases))
+    names = ("other", "this") + (("stages",) if args.torch_stages else ())
+    runs = {name: [] for name in names}
+    for name in (names + names[::-1]) if quick else ():
+        runs[name].append(run(trees[name], quick, args.cli_pairs, args.timed_phases,
+                              name == "stages"))
+    for name in names if sweep else ():
+        runs[name].append(run(trees[name], sweep, args.cli_pairs, args.timed_phases,
+                              name == "stages"))
     for path in quick + sweep:
         line = []
-        for name in ("other", "this"):
+        for name in names:
             rs = [r[path] for r in runs[name] if path in r]
             walls = [r["wall"] for r in rs]
             med = rs[walls.index(statistics.median_low(walls))]
@@ -181,8 +202,9 @@ def main(argv=None) -> int:
             its = med["iterations"] if med["pairs"] <= 12 else f"summed {sum(med['iterations'])}"
             line.append(f"{name}: wall s {[round(w, 3) for w in walls]}, median run {split}; "
                         f"refinement {med['phases'].get('refinement', 0.0) / med['wall']:.3f} of "
-                        f"the wall; iterations {its}, converged {med['converged']}/"
-                        f"{med['pairs']}, launches {med['counts']}")
+                        f"the wall; iterations {its}, ms per iteration "
+                        f"{1e3 * med['wall'] / max(sum(med['iterations']), 1):.3f}, converged "
+                        f"{med['converged']}/{med['pairs']}, launches {med['counts']}")
         print(f"{path}: " + " | ".join(line) + f"  [{card}]", flush=True)
     return 0
 

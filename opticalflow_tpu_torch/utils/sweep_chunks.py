@@ -16,7 +16,9 @@ with the card's name and power limit from nvidia-smi.
 ``--costs`` first prints what one iteration of the sweep's solve costs at
 a chunk of 300 cells and of 26 (the grid's first cells): milliseconds per
 call (CUDA events, the host's launches included) of the fused matvec
-(B1), the multigrid V-cycle, the refinement's df32 operator and residual
+(B1), the multigrid V-cycle (also through the plain stages on the same
+hierarchy, and what one V-cycle launches: B1, B5 and B6 and the torch
+operations it dispatches), the refinement's df32 operator and residual
 as the solve runs them (kernel B4) and their plain versions (the torch ops
 the refinement ran before B4), and the wall time of 50 main BiCGStab
 iterations.  ``--costs --chunks`` (no chunk size) prints the costs alone.
@@ -27,6 +29,7 @@ from __future__ import annotations
 import argparse
 import subprocess
 import time
+from typing import Callable, Dict
 
 import numpy as np
 import torch
@@ -63,6 +66,77 @@ def timed_sweep(movie: np.ndarray, batch_chunk: int):
     return (result, seconds, its, chunk_s, ck.LAUNCHES - launches, ck.PLAIN_CALLS - plain)
 
 
+def _sweep_system(movie: np.ndarray, n: int):
+    """The first ``n`` cells of the sweep's solve on the card: raw frames
+    (n, 128, 128), raw alphas, the intensity scale, the normalised pair
+    data, kernel B1's matvec and the multigrid hierarchy (kernel route)."""
+    from opticalflow_tpu_torch.flow import variational
+    from opticalflow_tpu_torch.ops import elop
+    from opticalflow_tpu_torch.solve import multigrid
+
+    dev = torch.device("cuda")
+    frames = torch.from_numpy(movie + 1e-4).to(dev)
+    grid = torch.tensor([[a, b] for a in SPEED_ALPHAS for b in REMODELLING_ALPHAS],
+                        dtype=torch.float32, device=dev)
+    prev, cur = frames[0].expand(n, 128, 128), frames[1].expand(n, 128, 128)
+    a_s, a_r = grid[:n, 0], grid[:n, 1]
+    scale = frames[0].max()
+    p, c = prev / scale, cur / scale
+    pair = elop.compute_frame_pair_data(p, c, a_s / scale**2, a_r, "compat")
+    matvec = variational._make_matvec("auto", p, a_s / scale**2, a_r, "compat", pair.coeffs)
+    hierarchy = multigrid.setup(matvec, elop.diag_blocks(pair.coeffs), 126, 126,
+                                torch.float32, route=variational.mg_route("auto"))
+    return prev, cur, a_s, a_r, scale, pair, matvec, hierarchy
+
+
+def v_cycle_counts(v_cycle: Callable, u: torch.Tensor) -> Dict[str, int]:
+    """What one call of ``v_cycle(u)`` launches: the launches of kernels B1,
+    B5 and B6 (their counters) and the torch operations it dispatches,
+    views excluded (a ``TorchDispatchMode``; the kernels, launched through
+    ctypes, dispatch none), each a launch or more on the card."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops += not func.is_view
+            return func(*args, **(kwargs or {}))
+
+    before = ck.LAUNCHES, ck.MG_LAUNCHES, ck.MGT_LAUNCHES
+    with Count() as mode:
+        v_cycle(u)
+    torch.cuda.synchronize()
+    return {"B1": ck.LAUNCHES - before[0], "B5": ck.MG_LAUNCHES - before[1],
+            "B6": ck.MGT_LAUNCHES - before[2], "torch ops": mode.ops}
+
+
+def v_cycle_costs(movie: np.ndarray, n: int, card: str, sweeps: int = 2) -> Dict[str, float]:
+    """Milliseconds per V-cycle (CUDA events, the host's launches included)
+    at ``n`` cells of the sweep's 126x126 interior, on the kernels (B5, B6)
+    and, on the same hierarchy, through the plain stages (route 'torch'),
+    with what each launches (:func:`v_cycle_counts`); prints one line."""
+    import functools
+
+    from opticalflow_tpu_torch.solve import multigrid
+    from opticalflow_tpu_torch.utils.cuda_timing import call_ms
+
+    hierarchy = _sweep_system(movie, n)[-1]
+    u = torch.randn(n, 3, 126, 126, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    out = {}
+    for route in ("kernels", "torch"):
+        v_cycle = functools.partial(multigrid.v_cycle, hierarchy._replace(route=route),
+                                    sweeps=sweeps)
+        out[route] = call_ms(lambda: v_cycle(u), 5)
+        out[f"{route} launches"] = v_cycle_counts(v_cycle, u)
+    print(f"V-cycle at {n} cells of 126x126 ({len(hierarchy.levels)} levels, {sweeps} sweeps): "
+          f"{out['kernels']:.3f} ms on kernels B5/B6, launching {out['kernels launches']}; "
+          f"{out['torch']:.3f} ms through the plain stages, launching {out['torch launches']}  "
+          f"[{card}]", flush=True)
+    return out
+
+
 def op_costs(movie: np.ndarray, card: str, batches=(300, 26)):
     """Per-call costs of the sweep solve's operators at each batch size."""
     import functools
@@ -73,18 +147,9 @@ def op_costs(movie: np.ndarray, card: str, batches=(300, 26)):
     from opticalflow_tpu_torch.utils.cuda_timing import call_ms
 
     dev = torch.device("cuda")
-    frames = torch.from_numpy(movie + 1e-4).to(dev)
-    grid = torch.tensor([[a, b] for a in SPEED_ALPHAS for b in REMODELLING_ALPHAS],
-                        dtype=torch.float32, device=dev)
     for n in batches:
-        prev, cur = frames[0].expand(n, 128, 128), frames[1].expand(n, 128, 128)
-        a_s, a_r = grid[:n, 0], grid[:n, 1]
-        scale = frames[0].max()
-        p, c = prev / scale, cur / scale
-        pair = elop.compute_frame_pair_data(p, c, a_s / scale**2, a_r, "compat")
-        matvec = variational._make_matvec("auto", p, a_s / scale**2, a_r, "compat", pair.coeffs)
-        hierarchy = multigrid.setup(matvec, elop.diag_blocks(pair.coeffs), 126, 126,
-                                    torch.float32)
+        v_cycle_costs(movie, n, card)
+        prev, cur, a_s, a_r, scale, pair, matvec, hierarchy = _sweep_system(movie, n)
         ops = ck.pack_df32(elop.compute_frame_pair_data_df(prev, cur, a_s, a_r, "compat",
                                                            scale.expand(n)))
         gen = torch.Generator(dev).manual_seed(0)

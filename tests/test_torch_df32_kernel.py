@@ -133,8 +133,11 @@ def test_wrappers_check_shapes():
 
 
 def test_only_b4_is_built_without_contraction(monkeypatch, tmp_path):
-    """nvcc gets -fmad=false for el_df32.cu alone, no source gets fast math
-    or flush-to-zero, and the flags enter each library's key."""
+    """nvcc gets -fmad=false for the sources held to their plain versions
+    bit for bit alone (B4's el_df32.cu and, since B5 and B6 came, the
+    multigrid's mg_smooth.cu and mg_transfer.cu; B1-B3 may contract), no
+    source gets fast math or flush-to-zero, and the flags enter each
+    library's key."""
     commands = []
 
     class FailedNvcc:
@@ -154,7 +157,8 @@ def test_only_b4_is_built_without_contraction(monkeypatch, tmp_path):
     by_source = {args[-1].rsplit("/", 1)[-1]: args for args in commands}
     assert set(by_source) == set(ck.ENTRY_POINTS)
     for src, args in by_source.items():
-        assert ("-fmad=false" in args) == (src == "el_df32.cu")
+        assert ("-fmad=false" in args) == (src in ("el_df32.cu", "mg_smooth.cu",
+                                                   "mg_transfer.cu"))
         assert not any("fast_math" in a or "ftz=true" in a for a in args)
     output = by_source["el_df32.cu"][by_source["el_df32.cu"].index("-o") + 1]
 

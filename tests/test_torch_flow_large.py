@@ -16,23 +16,31 @@ Tolerances (EPE = max over interior pixels of the flow endpoint error, px):
 * port vs JAX at the default refinement exit: < 1e-3 px.  Both stop once
   the df32 residual is under 0.03 x tol, and at this strip's conditioning
   that residual slack is worth several 1e-4 px: float32 rounding sends the
-  two solves along different Krylov paths (measured with eight threads:
-  the port 195 iterations and 2.384e-4 px from the direct solve, JAX 142
-  iterations and 2.952e-4 px, 3.132e-4 px between them);
+  two solves along different Krylov paths (measured with eight threads
+  on an 8-core x86 CPU, the V-cycle's stencil summed in JAX's order: the
+  port 155 iterations and 9.983e-4 px from the direct solve, JAX 139
+  iterations and 7.535e-4 px, 2.758e-4 px between them);
 * port vs JAX refined to 0.003 x tol (the df32 floor of both): < 1e-4 px
-  (measured 4.053e-5 px), with either matvec
+  (measured 2.002e-5 px), with either matvec
   (tests/test_torch_flow_large_floor.py, on this file's helpers).
 
 The two files pin eight intra-op threads (tests/torch_threads.py), where
 the port's other test modules run one: at the default exit the port's
 distances depend on the summation order of its Krylov reductions, which
 depends on the thread count.  Measured on an 8-core x86 CPU, port vs
-JAX / vs the direct solve, px: 1 thread 1.037e-3 / 1.106e-3 (142
-iterations: both bounds exceeded), 2 and 3 threads 4.474e-4 / 5.169e-4,
-4 and 6 threads 4.683e-4 / 5.693e-4, 8 threads 3.132e-4 / 2.384e-4; at
-the df32 floor 2.3e-5 to 5.2e-5 / 1.1e-5 to 4.2e-5 at 1, 4 and 8
-threads.  That the default exit ends past the accuracy bar with one
-thread is an open fault (ROADMAP §C).
+JAX / vs the direct solve, px: 1 thread 6.192e-4 / 5.452e-4 (158
+iterations), 2 threads 2.990e-4 / 1.013e-3 (170), 4 threads 3.249e-4 /
+1.069e-3 (140), 8 threads 2.758e-4 / 9.983e-4 (155); at the df32 floor
+2.9e-6 to 2.6e-5 / 2.0e-5 to 4.6e-5 at 1, 4 and 8 threads.  JAX's own
+solve spreads as far under other summation orders: on the strip's mirror
+images, which permute every reduction's inputs, it ends 6.405e-4 to
+1.125e-3 px from the direct solve (130 to 174 iterations), so the default
+exit ending near the accuracy bar is the reference's choice (ROADMAP §C,
+C3).  The port's distances to the direct solve, by threads, mirror image
+and stencil summation order: ``python -m
+opticalflow_tpu_torch.utils.exit_band strip``.  At eight threads the port
+ends 1.7e-6 px under the bar, the same bits on two x86 CPUs with AVX-512;
+a machine with another vector ISA or OpenMP build may cross it.
 One JAX solve per file, so that the two spread over the test workers.
 """
 

@@ -26,7 +26,9 @@ over two GPUs (which skip on a machine with one) are held bitwise against
 the one-device routes: the same per-block arithmetic.  Kernel B4 (the df32
 residual and operator, built without contraction into fused multiply-adds)
 is held to its plain version bit for bit: values and bits, signed zeros
-included.
+included; so are the multigrid's kernels B5 and B6 (built the same way),
+and a hierarchy set up and applied through them equals the same hierarchy
+through the plain stages bit for bit.
 """
 
 import numpy as np
@@ -723,3 +725,146 @@ def test_solve_on_the_card_refines_through_b4_only(dy_mode):
     assert ck.DF_LAUNCHES > counts[0] and (ck.DF_PLAIN_CALLS, ck.PLAIN_CALLS) == counts[1:]
     with pytest.raises(TypeError):
         variational_optical_flow(movie, dtype=torch.float64, **kw)
+
+
+# Kernels B5 and B6 (the multigrid V-cycle): (pairs, fine (M, N), K) at
+# ragged shapes, both parities of M and N (127 -> 64, 63 -> 32, 255 -> 128),
+# the smallest grids (2x2 -> 1x1, 1x1), the probes' K = 27 and the coarsest
+# operator's K = 3 m n = 192 at 8x8; the sweeps and the epilogue at K = 1.
+MG_CASES = [(2, (17, 22), 1), (3, (61, 190), 1), (2, (127, 127), 1), (2, (63, 64), 1),
+            (1, (255, 255), 1), (2, (2, 2), 1), (2, (1, 1), 1), (2, (24, 31), 27),
+            (3, (9, 9), 27), (1, (8, 8), 192), (2, (2, 2), 27)]
+
+
+def _mg_operands(dev, B, M, N, K, seed):
+    """A random level (S, binv) and fields x, b, y (B, [K,] 3, M, N) and a
+    coarse e on the card, with signed zeros among the field values."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    S = torch.randn((B, 3, 3, 3, 3, M, N), device=dev, generator=gen)
+    binv = torch.randn((B, 3, 3, M, N), device=dev, generator=gen)
+    lead = (B,) if K == 1 else (B, K)
+    fields = [torch.randn(lead + (3, M, N), device=dev, generator=gen) for _ in range(3)]
+    for f in fields:
+        f.view(-1)[::7] = -0.0
+        f.view(-1)[3::11] = 0.0
+    e = torch.randn(lead + (3, (M + 1) // 2, (N + 1) // 2), device=dev, generator=gen)
+    return S, binv, *fields, e
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,shape,K", MG_CASES)
+def test_mg_kernels_equal_their_plain_versions(B, shape, K):
+    """B5 (sweep, zero guess, level-0 epilogue, stencil apply) and B6
+    (the four restrictions and both prolongations) bit for bit against
+    their plain versions, signed zeros included."""
+    from opticalflow_tpu_torch.utils.df32_cases import bitwise_equal
+
+    dev = _cuda()
+    M, N = shape
+    S, binv, x, b, y, e = _mg_operands(dev, B, M, N, K, seed=M * N + K)
+    coarse = ((M + 1) // 2, (N + 1) // 2)
+    cases = [(ck.mg_stencil_apply, ck.mg_stencil_apply_ref, (S, x)),
+             (ck.mg_residual_restrict, ck.mg_residual_restrict_ref, (S, x, b, None, coarse)),
+             (ck.mg_residual_restrict, ck.mg_residual_restrict_ref, (None, None, b, y, coarse)),
+             (ck.mg_residual_restrict, ck.mg_residual_restrict_ref, (S, x, None, None, coarse)),
+             (ck.mg_residual_restrict, ck.mg_residual_restrict_ref, (None, None, None, y, coarse)),
+             (ck.mg_prolong_add, ck.mg_prolong_add_ref, (x, e, shape)),
+             (ck.mg_prolong_add, ck.mg_prolong_add_ref, (None, e, shape))]
+    if K == 1:
+        cases += [(ck.mg_smooth, ck.mg_smooth_ref, (S, binv, x, b, 0.7)),
+                  (ck.mg_smooth, ck.mg_smooth_ref, (S, binv, None, b, 0.7)),
+                  (ck.mg_smooth_fine, ck.mg_smooth_fine_ref, (binv, x, b, y, 0.7)),
+                  (ck.mg_smooth_fine, ck.mg_smooth_fine_ref, (binv, None, b, None, 0.7))]
+    launches = ck.MG_LAUNCHES + ck.MGT_LAUNCHES
+    plain = ck.MG_PLAIN_CALLS, ck.MGT_PLAIN_CALLS
+    outs = [kernel(*args) for kernel, _, args in cases]
+    assert ck.MG_LAUNCHES + ck.MGT_LAUNCHES == launches + len(cases)
+    # the kernel calls ran no plain version
+    assert (ck.MG_PLAIN_CALLS, ck.MGT_PLAIN_CALLS) == plain
+    for (kernel, ref, args), out in zip(cases, outs):
+        assert bitwise_equal(out, ref(*args)), (kernel.__name__, [a is None for a in args])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_mg_wrappers_raise_instead_of_falling_back():
+    dev = _cuda()
+    S, binv, x, b, y, e = _mg_operands(dev, 2, 17, 22, 1, seed=9)
+    plain = ck.MG_PLAIN_CALLS, ck.MGT_PLAIN_CALLS
+    with pytest.raises(TypeError):  # float32 only on the card
+        ck.mg_smooth(S.double(), binv, x, b, 0.7)
+    with pytest.raises(TypeError):
+        ck.mg_smooth_fine(binv, x.double(), b, y, 0.7, checked=True)
+    with pytest.raises(ValueError):
+        ck.mg_stencil_apply(S, x.transpose(-1, -2))
+    with pytest.raises(ValueError):
+        ck.mg_smooth(S, binv, x, b.cpu(), 0.7)
+    with pytest.raises(ValueError):
+        ck.mg_residual_restrict(S, x, b, None, (9, 10))
+    with pytest.raises(ValueError):
+        ck.mg_prolong_add(x[..., :-1], e, (17, 22))
+    with pytest.raises(ValueError):
+        ck.mg_check_level(S[..., 1:, :], binv)
+    assert (ck.MG_PLAIN_CALLS, ck.MGT_PLAIN_CALLS) == plain
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("smoother", ["jacobi", "gs"])
+def test_v_cycle_on_the_kernels_equals_the_torch_route(smoother):
+    """A hierarchy on kernel B1 set up and applied through B5 and B6 equals
+    the same hierarchy through the plain stages bit for bit: the probes,
+    the coarse stencils, the block inverses and the V-cycle."""
+    from opticalflow_tpu_torch.solve import multigrid
+
+    dev = _cuda()
+    m, n = 61, 94
+    frames = torch.from_numpy(_frames(m, n, 4)).to(dev)
+    a_s = torch.tensor([a for a, _ in ALPHAS], device=dev)
+    a_r = torch.tensor([a for _, a in ALPHAS], device=dev)
+    pair = elop.compute_frame_pair_data(frames[:-1], frames[1:], a_s, a_r, "compat")
+    I, scalars = frames[:-1].contiguous(), torch.stack([a_s, a_r], dim=-1).contiguous()
+
+    def matvec(u):
+        return ck.el_matvec_reduced_fused(I, scalars, u.contiguous(), True)
+
+    blocks = elop.diag_blocks(pair.coeffs)
+    counts = ck.MG_LAUNCHES, ck.MGT_LAUNCHES, ck.MG_PLAIN_CALLS, ck.MGT_PLAIN_CALLS
+    h = multigrid.setup(matvec, blocks, m, n, torch.float32, route="kernels")
+    r = torch.randn((3, 3, m, n), device=dev, generator=torch.Generator(dev).manual_seed(6))
+    z = multigrid.v_cycle(h, r, smoother=smoother)
+    assert ck.MG_LAUNCHES > counts[0] and ck.MGT_LAUNCHES > counts[1]
+    assert (ck.MG_PLAIN_CALLS, ck.MGT_PLAIN_CALLS) == counts[2:]
+    h_t = multigrid.setup(matvec, blocks, m, n, torch.float32, route="torch")
+    for level, level_t in zip(h.levels, h_t.levels):
+        assert torch.equal(level.binv, level_t.binv)
+        if level.stencil is not None:
+            assert torch.equal(level.stencil.view(torch.int32), level_t.stencil.view(torch.int32))
+    z_t = multigrid.v_cycle(h_t, r, smoother=smoother)
+    assert torch.equal(z.view(torch.int32), z_t.view(torch.int32))
+    idx = torch.tensor([2, 0], device=dev)
+    sub = multigrid.take(h, idx, lambda u: ck.el_matvec_reduced_fused(
+        I[idx].contiguous(), scalars[idx].contiguous(), u.contiguous(), True))
+    launches = ck.MG_LAUNCHES + ck.MGT_LAUNCHES
+    z_sub = multigrid.v_cycle(sub, r[idx], smoother=smoother)
+    assert sub.route == "kernels" and ck.MG_LAUNCHES + ck.MGT_LAUNCHES > launches
+    torch.testing.assert_close(z_sub, z[idx], rtol=1e-5, atol=1e-5 * z.abs().max().item())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("matvec", ["auto", "hybrid", "xla"])
+def test_solve_on_the_card_runs_the_v_cycle_on_b5_and_b6(matvec):
+    """A batched solve on the card: every kernel route's V-cycles launch B5
+    and B6 and no plain version; 'xla' keeps the plain stages (its solve may
+    be float64)."""
+    dev = _cuda()
+    movie, _ = make_translating_blob_movie(n_frames=3, dimension=40, width=20.0, sigma=3.0,
+                                           v_x=0.15, v_y=0.1)
+    movie = torch.from_numpy((movie * 100.0).astype(np.float32)).to(dev)
+    counts = ck.MG_LAUNCHES, ck.MGT_LAUNCHES, ck.MG_PLAIN_CALLS, ck.MGT_PLAIN_CALLS
+    result = variational_optical_flow(movie, speed_alpha=1000.0, remodelling_alpha=1000.0,
+                                      warm_start="cold", solver=SolverConfig(matvec=matvec))
+    assert result["converged_all"].all()
+    launched = ck.MG_LAUNCHES > counts[0] and ck.MGT_LAUNCHES > counts[1]
+    assert launched == (matvec != "xla")
+    assert (ck.MG_PLAIN_CALLS, ck.MGT_PLAIN_CALLS) == counts[2:]
