@@ -26,16 +26,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    exponents, NaN from an overflowing split; 70,000 pairs of 2x2, more
    than 65,535 blocks); its registers, spills and warps an SM printed;
    then the multigrid V-cycle's kernels B5 (smoothing sweeps, level-0
-   epilogue, stencil apply) and B6 (residual-and-restrict, prolong-and-add)
+   epilogue, stencil apply) and B6 (residual-and-restrict, prolong-and-add,
+   and at a probed level the last pre-sweep fused into the
+   residual-and-restrict and the prolong-add into the first post-sweep)
    against their plain versions bit for bit at every level shape each
    path's V-cycle launches (the bench's 11 x 254x254 and 127-16, the
    sweep's 150 x 126x126 and 63-16, the command line's 510, 255 and 128,
    the 1024x1024 pair's 1022, 511 and 256), a ragged 3 x 61x190, 2x2 and
-   1x1, the setup's probes at K = 27 and the coarsest operator's K = 192,
-   level 0's and level 1's launches of each path timed warm and cold
-   beside their bound (B6 beside ``F.conv2d`` / ``F.conv_transpose2d``);
-   and one V-cycle at the sweep's chunk timed, on the kernels and through
-   the plain stages, with what each launches;
+   1x1, the setup's probes at K = 27 and the coarsest operator's K = 192;
+   B5's level-0 and level-1 launches and every B6 instance at each path's
+   level 0 and level 1, and the setup's transfers at K = 27, timed warm
+   and cold beside their bound (R y and P e beside ``F.conv2d`` /
+   ``F.conv_transpose2d``); and one V-cycle at the sweep's chunk timed, on
+   the kernels and through the plain stages, with what each launches (22
+   kernels on the kernels, checked);
 4. the 256x256 path once warm and once timed: ``variational_optical_flow``
    on the bench movie (13 frames of 256x256, 12 pairs, two-pass warm
    start, alpha_s = alpha_r = 1000), with every kernel's counters set to 0
@@ -129,7 +133,7 @@ launches in each path's run (``launches_by_path``) and their sum
 (``launches``); its largest error against its plain version; at its timed
 shape (B1 and B2: 11 pairs of 254x254; B3: the 1022x1022 interior as one
 tile; K = 1; B4: the operator at 11 pairs of 254x254; B5: the sweep and
-B6: the residual-and-restrict on the sweep's level 1, 150 x 63x63), its
+B6: the sweep-residual-restrict on the sweep's level 1, 150 x 63x63), its
 device time per
 launch warm (``ms``, CUDA-graph replays
 on operands left in L2) and cold (``cold_ms``, the L2 evicted before every
@@ -137,17 +141,19 @@ launch), the plain version's (``plain_ms``), both per back-to-back call
 (``call_ms``, ``plain_call_ms``), the least time the card could take
 (``bound_ms``: the larger of the bytes moved over 3.35 TB/s and the
 operations over 67 TFLOP/s of float32, ``bound_by``), and ``library_ms``
-(B6: ``F.conv2d`` / ``F.conv_transpose2d`` of the same transfer; null for
-the others: no single PyTorch call computes the EL stencil, the df32
-residual or a block-Jacobi sweep), its registers per compiled instance (``registers``, ptxas's
-count in this run's build; null where the library was already built);
+(B6's R y and P e: ``F.conv2d`` / ``F.conv_transpose2d``; null for the
+others: no single PyTorch call computes the EL stencil, the df32
+residual, a block-Jacobi sweep or a residual with its transfer), its
+registers per compiled instance (``registers``, ptxas's count in this
+run's build; null where the library was already built);
 for B4 also its spill bytes (``spill_bytes``, null likewise) and its
 resident warps an SM per mode (``warps_per_sm``); the same timing keys at
 every other shape a path launches: B1 under ``at_bench_shape`` (K = 27),
 ``at_large_shape``, ``at_sweep_shape`` and ``at_cli_shape``, B2 under
 ``at_bench_shape`` and ``at_large_shape``, B3-B6 under ``at_path_shape``
-(B3: each operand form and K; B4: each mode and shape; B5 and B6: each
-path's timed launches).
+(B3: each operand form and K; B4: each mode and shape; B5: each path's
+timed launches; B6: every instance at each path's level 0 and 1, and the
+setup's transfers).
 The last line is ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
 
@@ -371,8 +377,12 @@ KERNELS = {
 TIMED_AT = {"el_matvec_reduced_fused": ("bench", "large", "sweep", "cli"),
             "el_matvec_plain_core": ("bench", "large")}
 KERNELS_BY_LABEL = {label: name for name, (label, _, _) in KERNELS.items()}
-# the B5 / B6 launches phase 3 times on each path: level 0's, then level 1's
-MG_TIMED = (("fine", "restrict b - y", "prolong-add"), ("sweep", "zero guess", "residual-restrict"))
+# the B5 launches phase 3 times on each path: level 0's, then level 1's
+# (every B6 instance is timed at both: mg_cases.transfer_cases)
+MG_TIMED = (("fine",), ("sweep", "zero guess"))
+# the launches of one V-cycle at the sweep's chunk (sweeps 2, 5 levels): 4
+# B1, then B5 and B6, with both fused B6 stages at the 3 probed levels
+V_CYCLE_LAUNCHES = {"B1": 4, "B5": 10, "B6": 8}
 
 
 def check_kernels(movie, large, stack_frame, dev, card):
@@ -690,16 +700,19 @@ def check_mg_kernels(dev, card, entries):
     level shapes (``mg_cases.path_cases``: the bench's 11 x 254x254 and its
     probed levels 127-16, the sweep's 150 x 126x126 and 63-16, the command
     line's 1 x 510x510, 255 and 128, the 1024x1024 pair's 1 x 1022x1022,
-    511 and 256), a ragged 3 x 61x190, 2 x 2 and 1 x 1, the setup's probes
-    at K = 27 (the sweep's, the largest) and the coarsest operator's K = 192
-    (3 m n at 8 x 8), each held to its plain version bit for bit (the bits
-    compared: signed zeros among the operands).  Level 0's epilogue,
-    restriction and prolongation and level 1's sweep, zero guess and
-    residual-and-restrict of each path timed warm and cold beside their
-    bound, B6's restrictions and prolongations beside ``F.conv2d`` /
-    ``F.conv_transpose2d`` (TF32 off); the sweep path's level-1 sweep and
-    residual-and-restrict fill B5's and B6's own keys.  Then the V-cycle's
-    milliseconds and launches at the sweep's chunk."""
+    511 and 256), every B6 instance, the six standalone and the two fused,
+    at each path's level 0 and level 1 (``mg_cases.transfer_cases``), the
+    setup's transfers at K = 27 (``mg_cases.probe_cases``), a ragged 3 x
+    61x190, 2 x 2 and 1 x 1, the coarsest operator's K = 192 (3 m n at 8 x
+    8), each held to its plain version bit for bit (the bits compared:
+    signed zeros among the operands).  Level 0's epilogue and level 1's
+    sweep and zero guess (B5), and every B6 instance of transfer_cases and
+    probe_cases, timed warm and cold beside their bound; R y and P e also
+    beside the one PyTorch call of the same function (``F.conv2d`` /
+    ``F.conv_transpose2d``, TF32 off); the sweep path's level-1 sweep and
+    sweep-residual-restrict fill B5's and B6's own keys.  Then the
+    V-cycle's milliseconds and launches at the sweep's chunk, the launches
+    checked against ``V_CYCLE_LAUNCHES``."""
     from opticalflow_tpu_torch.utils import mg_cases
     from opticalflow_tpu_torch.utils.cuda_timing import device_ms
     from opticalflow_tpu_torch.utils.df32_cases import bitwise_equal
@@ -711,18 +724,21 @@ def check_mg_kernels(dev, card, entries):
     for path in mg_cases.PATHS:
         path_cases = mg_cases.path_cases(path)
         level0, level1 = path_cases[0].M, path_cases[4].M
-        cases += [(path, c, (c.M, c.kind) in {(level0, k) for k in MG_TIMED[0]}
-                   | {(level1, k) for k in MG_TIMED[1]}) for c in path_cases]
+        timed = {(level0, k) for k in MG_TIMED[0]} | {(level1, k) for k in MG_TIMED[1]}
+        cases += [(path, c, (c.M, c.kind) in timed) for c in path_cases
+                  if mg_cases.KINDS[c.kind] == "B5"]
+        cases += [(path, c, False) for c in path_cases  # deeper levels' B6
+                  if mg_cases.KINDS[c.kind] == "B6" and c.M not in (level0, level1)]
+        cases += [(path, c, True) for c in mg_cases.transfer_cases(path)]
+        cases += [(f"{path} setup", c, True) for c in mg_cases.probe_cases(path)]
     cases += [("ragged", Case(kind, 3, 1, 61, 190), False) for kind in
               ("sweep", "zero guess", "fine", "apply", "residual-restrict", "restrict b - y",
-               "prolong-add")]
+               "prolong-add", "sweep-residual-restrict", "prolong-add-sweep")]
     cases += [(label, Case(kind, 2, K, M, M), False) for label, M in (("2x2", 2), ("1x1", 1))
               for K in (1, 27) for kind in mg_cases.KINDS
-              if K == 1 or kind not in ("sweep", "zero guess", "fine")]
-    cases += [("sweep setup, probes", Case(kind, n_sweep, 27, M, M), False)
-              for kind, M in (("prolong", 126), ("restrict y", 126), ("prolong", 63),
-                              ("restrict S x", 63), ("apply", 32))]
-    cases += [("sweep setup, coarsest operator", Case("apply", n_sweep, 192, 8, 8), False),
+              if K == 1 or kind not in mg_cases.SWEEPS]
+    cases += [("sweep setup", Case("apply", n_sweep, 27, 32, 32), False),
+              ("sweep setup, coarsest operator", Case("apply", n_sweep, 192, 8, 8), False),
               ("bench setup, coarsest operator", Case("apply", 11, 192, 8, 8), False)]
     t0 = time.perf_counter()
     tf32 = torch.backends.cudnn.allow_tf32
@@ -733,8 +749,9 @@ def check_mg_kernels(dev, card, entries):
         y = kernel_fn(*args)
         y_ref = plain_fn(*args)
         torch.cuda.synchronize()
-        bits = bitwise_equal(y, y_ref)
-        err = (y - y_ref).abs().max().item()
+        outs = list(zip(y, y_ref)) if isinstance(y, tuple) else [(y, y_ref)]
+        bits = all(bitwise_equal(a, b) for a, b in outs)
+        err = max((a - b).abs().max().item() for a, b in outs)
         desc = f"{case.kind} N={case.B} K={case.K} {case.M}x{case.N}"
         print(f"{mg_cases.KINDS[case.kind]} {label} {desc}: bits equal to its plain version "
               f"{bits}, max |kernel - plain| {err:.3e}  [{card}]", flush=True)
@@ -742,10 +759,10 @@ def check_mg_kernels(dev, card, entries):
             raise AssertionError(f"{mg_cases.KINDS[case.kind]} differs from its plain version: "
                                  f"{label} {desc}")
         entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], err)
-        del y, y_ref
+        del y, y_ref, outs
         if timed:
             own = label == "sweep" and case.M == 63 and case.kind in ("sweep",
-                                                                       "residual-restrict")
+                                                                       "sweep-residual-restrict")
             if own:
                 target = entries[name]
             else:
@@ -756,14 +773,21 @@ def check_mg_kernels(dev, card, entries):
             library = mg_cases.library_call(case, args)
             if library is not None:
                 target["library_ms"] = device_ms(library)
-                call = "conv_transpose2d" if case.kind.startswith("prolong") else "conv2d"
-                print(f"  its transfer alone as one convolution (F.{call}, TF32 off): "
-                      f"{target['library_ms'] * 1e3:.3f} us  [{card}]", flush=True)
+                cold = device_ms(library, cold=True)
+                print(f"  the same function as one PyTorch call (F.{mg_cases.LIBRARY[case.kind]}, "
+                      f"TF32 off): {target['library_ms'] * 1e3:.3f} us warm, {cold * 1e3:.3f} "
+                      f"cold; the kernel {target['library_ms'] / target['ms']:.2f}x as fast warm, "
+                      f"{cold / target['cold_ms']:.2f}x cold  [{card}]", flush=True)
         del args
     torch.backends.cudnn.allow_tf32 = tf32
     print(f"B5 and B6: {len(cases)} cases bitwise equal to their plain versions in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    v_cycle_costs(sweep_movie(), n_sweep, card)
+    costs = v_cycle_costs(sweep_movie(), n_sweep, card)
+    launches = {k: costs["kernels launches"][k] for k in V_CYCLE_LAUNCHES}
+    print(f"launches per V-cycle: {sum(launches.values())} ({launches}), expected "
+          f"{sum(V_CYCLE_LAUNCHES.values())} with both fused B6 stages, 28 without", flush=True)
+    if launches != V_CYCLE_LAUNCHES:
+        raise AssertionError(f"a V-cycle launched {launches}, expected {V_CYCLE_LAUNCHES}")
 
 
 def kernel_usage():
@@ -780,10 +804,11 @@ def kernel_usage():
 
 def _short(mangled):
     """A kernel's name and template arguments from its mangled name, e.g.
-    el_df32_kernel<1,0> or restrict_kernel<1,1>."""
+    el_df32_kernel<1,0> or restrict_kernel<1,8,32>."""
     import re
 
-    found = re.search(r"\d+((?:el|mg)_\w+?kernel|restrict_kernel|prolong_kernel)", mangled)
+    found = re.search(r"\d+((?:el|mg)_\w+?kernel|sweep_restrict_kernel|restrict_kernel|"
+                      r"prolong_sweep_kernel|prolong_kernel)", mangled)
     name = found.group(1) if found else mangled
     args = re.findall(r"L[a-zA-Z]\w*?E?(\d+)E", mangled[found.end():] if found else "")
     return f"{name}<{','.join(args)}>" if args else name

@@ -41,9 +41,12 @@ Six kernels, three of them on the stencil of ``csrc/el_stencil.cuh``:
   ``jacobi_sweep``, ``apply_blocks``, ``stencil_matvec``, ``restrict``
   and ``prolong``.  Wrappers :func:`mg_smooth`, :func:`mg_smooth_fine`
   and :func:`mg_stencil_apply` (B5, counters ``MG_LAUNCHES`` and
-  ``MG_PLAIN_CALLS``), :func:`mg_residual_restrict` and
-  :func:`mg_prolong_add` (B6, ``MGT_LAUNCHES`` and ``MGT_PLAIN_CALLS``);
-  their plain versions (``*_ref``) are the stages of ``solve.multigrid``.
+  ``MG_PLAIN_CALLS``), :func:`mg_residual_restrict`, :func:`mg_prolong_add`
+  and, at a probed level, the last pre-sweep fused into the
+  residual-and-restrict (:func:`mg_smooth_restrict`) and the prolong-add
+  fused into the first post-sweep (:func:`mg_prolong_smooth`) (B6,
+  ``MGT_LAUNCHES`` and ``MGT_PLAIN_CALLS``); their plain versions
+  (``*_ref``) are the stages of ``solve.multigrid``.
   Both are built with ``-fmad=false`` and equal their plain versions bit
   for bit.  A level's stencil and block inverse are checked once per
   hierarchy (:func:`mg_check_level`, from ``multigrid.setup`` and
@@ -98,7 +101,8 @@ DF_LAUNCHES = 0  # kernel launches by el_residual_df32 and el_matvec_df32
 DF_PLAIN_CALLS = 0  # calls of the plain versions el_residual_df32_ref, el_matvec_df32_ref
 MG_LAUNCHES = 0  # kernel launches by mg_smooth, mg_smooth_fine and mg_stencil_apply (B5)
 MG_PLAIN_CALLS = 0  # calls of their plain versions (the *_ref functions)
-MGT_LAUNCHES = 0  # kernel launches by mg_residual_restrict and mg_prolong_add (B6)
+MGT_LAUNCHES = 0  # launches by mg_residual_restrict, mg_prolong_add, mg_smooth_restrict and
+# mg_prolong_smooth (B6)
 MGT_PLAIN_CALLS = 0  # calls of their plain versions
 BUILD_SECONDS = None  # wall time of this process's nvcc builds, if it built
 BUILD_LOG = ""  # nvcc's output of those builds (-Xptxas -v: registers, smem)
@@ -120,11 +124,12 @@ _TILES_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
 # B4 takes (planes, scalars, rhs_hi, rhs_lo, x_hi, x_lo, out, B, P, m, n,
 # residual, stream)
 _DF32_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-# B5 takes (S, binv, x, b, y, out, B, K, M, N, damp, mode, stream); B6 (S, x,
-# b, y, e, out, B, K, Mf, Nf, Mc, Nc, mode, stream)
+# B5 takes (S, binv, x, b, y, out, B, K, M, N, damp, mode, stream); B6 (S,
+# binv, x, b, y, e, out, out2, B, K, Mf, Nf, Mc, Nc, damp, mode, stream)
 _MG_SMOOTH_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
                                                                  ctypes.c_void_p]
-_MG_TRANSFER_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_MG_TRANSFER_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                                                  ctypes.c_void_p]
 # C entry point of each source, its argument types and the flags it adds to
 # NVCC_FLAGS: B4's error-free transforms are exact only if no product and
 # sum are contracted into a fused multiply-add, and B5 and B6 equal their
@@ -724,8 +729,12 @@ def el_matvec_df32(ops: DF32Operands, x: torch.Tensor) -> torch.Tensor:
 # B5's modes (csrc/mg_smooth.cu)
 MG_ZERO_GUESS, MG_FINE, MG_SWEEP, MG_APPLY = 0, 1, 2, 3
 # B6's modes (csrc/mg_transfer.cu): restriction with bit 0 = S x (else y),
-# bit 1 = b minus it; prolongation with bit 0 = x plus it
-MGT_RESTRICT, MGT_PROLONG = 0, 4
+# bit 1 = b minus it; prolongation with bit 0 = x plus it; the sweep fused
+# into the residual-and-restrict, and the prolong-add into the sweep
+MGT_RESTRICT, MGT_PROLONG, MGT_SWEEP_RESTRICT, MGT_PROLONG_SWEEP = 0, 4, 6, 7
+# B6's grid: the pair is its z block index, at most 65,535; its index math
+# within a field is 32-bit
+MGT_MAX_PAIRS = 65535
 
 
 def _level_shape(S: Optional[torch.Tensor], binv: Optional[torch.Tensor]):
@@ -908,6 +917,22 @@ def mg_residual_restrict_ref(S: Optional[torch.Tensor], x: Optional[torch.Tensor
     return multigrid.residual_restrict(S, x, b, y, coarse_shape)
 
 
+def _check_coarse(M: int, N: int, coarse_shape) -> None:
+    if tuple(coarse_shape) != ((M + 1) // 2, (N + 1) // 2):
+        raise ValueError(f"the coarse grid of {M}x{N} is {((M + 1) // 2, (N + 1) // 2)}, got "
+                         f"{tuple(coarse_shape)}")
+
+
+def _check_grid(B: int, K: int, M: int, N: int) -> None:
+    """ValueError unless B6's grid takes B pairs of K probes on an M x N
+    grid: B at most ``MGT_MAX_PAIRS``, the K probes' tiles and a level's 81
+    stencil planes below 2^31 (32-bit index math)."""
+    if B > MGT_MAX_PAIRS:
+        raise ValueError(f"B6 takes at most {MGT_MAX_PAIRS} pairs, got {B}")
+    if 81 * M * N >= 2**31 or K * M * N >= 2**31:
+        raise ValueError(f"B6 takes grids of fewer than 2^31 / 81 pixels, got {M}x{N}")
+
+
 def _check_restrict(S, x, b, y, coarse_shape, checked: bool = False):
     """(B, K, M, N, Mc, Nc, mode) of a B6 restriction, or ValueError."""
     if (S is None) == (y is None) or (S is None) != (x is None):
@@ -919,11 +944,20 @@ def _check_restrict(S, x, b, y, coarse_shape, checked: bool = False):
     if S is not None:
         B, M, N = (_level_shape if checked else mg_check_level)(S, None)
     K = _fields_k(B, M, N, True, x=x, b=b, y=y)
-    if tuple(coarse_shape) != ((M + 1) // 2, (N + 1) // 2):
-        raise ValueError(f"the coarse grid of {M}x{N} is {((M + 1) // 2, (N + 1) // 2)}, got "
-                         f"{tuple(coarse_shape)}")
+    _check_coarse(M, N, coarse_shape)
     mode = MGT_RESTRICT + int(S is not None) + 2 * int(b is not None)
     return B, K, M, N, coarse_shape[0], coarse_shape[1], mode
+
+
+def _launch_mgt(device: torch.device, K: int, out: torch.Tensor, S=None, binv=None, x=None,
+                b=None, y=None, e=None, out2=None, shape=(), damp: float = 0.0,
+                mode: int = 0) -> torch.Tensor:
+    """Launch one B6 instance (``shape`` = (B, K, Mf, Nf, Mc, Nc)) after
+    checking its grid."""
+    _check_grid(*shape[:4])
+    return _launch_mg("mg_transfer", "MGT_LAUNCHES", device, K, out,
+                      (_ptr(S), _ptr(binv), _ptr(x), _ptr(b), _ptr(y), _ptr(e), out.data_ptr(),
+                       _ptr(out2), *shape, damp, mode))
 
 
 def mg_residual_restrict(S: Optional[torch.Tensor], x: Optional[torch.Tensor],
@@ -940,9 +974,8 @@ def mg_residual_restrict(S: Optional[torch.Tensor], x: Optional[torch.Tensor],
     fine = x if S is not None else y
     _cuda_fields((S if S is not None else fine).device, x=x, b=b, y=y)
     out = fine.new_empty(fine.shape[:-2] + (Mc, Nc))
-    return _launch_mg("mg_transfer", "MGT_LAUNCHES", fine.device, K, out,
-                      (_ptr(S), _ptr(x), _ptr(b), _ptr(y), None, out.data_ptr(), B, K, M, N, Mc,
-                       Nc, mode))
+    return _launch_mgt(fine.device, K, out, S=S, x=x, b=b, y=y, shape=(B, K, M, N, Mc, Nc),
+                       mode=mode)
 
 
 def _check_prolong(x, e, fine_shape):
@@ -951,9 +984,7 @@ def _check_prolong(x, e, fine_shape):
         raise ValueError(f"e must be (B, [K,] 3, Mc, Nc), got {tuple(e.shape)}")
     M, N = fine_shape
     Mc, Nc = e.shape[-2:]
-    if (Mc, Nc) != ((M + 1) // 2, (N + 1) // 2):
-        raise ValueError(f"the coarse grid of {M}x{N} is {((M + 1) // 2, (N + 1) // 2)}, got "
-                         f"{(Mc, Nc)}")
+    _check_coarse(M, N, (Mc, Nc))
     if x is not None and tuple(x.shape) != tuple(e.shape[:-2]) + (M, N):
         raise ValueError(f"x must be {tuple(e.shape[:-2]) + (M, N)}, got {tuple(x.shape)}")
     K = e.shape[1] if e.dim() == 5 else 1
@@ -979,6 +1010,74 @@ def mg_prolong_add(x: Optional[torch.Tensor], e: torch.Tensor, fine_shape) -> to
     B, K, M, N, Mc, Nc, mode = _check_prolong(x, e, fine_shape)
     _cuda_fields(e.device, x=x, e=e)
     out = e.new_empty(tuple(e.shape[:-2]) + (M, N))
-    return _launch_mg("mg_transfer", "MGT_LAUNCHES", e.device, K, out,
-                      (None, _ptr(x), None, None, e.data_ptr(), out.data_ptr(), B, K, M, N, Mc,
-                       Nc, mode))
+    return _launch_mgt(e.device, K, out, x=x, e=e, shape=(B, K, M, N, Mc, Nc), mode=mode)
+
+
+def _check_fused(S, binv, x, b, e=None, coarse_shape=None, checked: bool = False):
+    """(B, M, N, Mc, Nc) of a fused B6 stage on a probed level: S and binv
+    the level's, x and b (B, 3, M, N), e (B, 3, Mc, Nc); or ValueError."""
+    if S is None or x is None:
+        raise ValueError("a fused stage sweeps from x on a probed level: it needs S and x")
+    B, M, N = (_level_shape if checked else mg_check_level)(S, binv)
+    _fields_k(B, M, N, False, x=x, b=b)
+    Mc, Nc = (M + 1) // 2, (N + 1) // 2
+    if coarse_shape is not None:
+        _check_coarse(M, N, coarse_shape)
+    if e is not None and tuple(e.shape) != (B, 3, Mc, Nc):
+        raise ValueError(f"e must be {(B, 3, Mc, Nc)}, got {tuple(e.shape)}")
+    return B, M, N, Mc, Nc
+
+
+def mg_smooth_restrict_ref(S: torch.Tensor, binv: torch.Tensor, x: torch.Tensor,
+                           b: torch.Tensor, damp: float, coarse_shape):
+    """Plain version of B6's sweep-residual-restrict:
+    ``multigrid.smooth_restrict``, (x1, R (b - S x1)) with x1 = x + damp
+    Binv (b - S x); fields (B, 3, M, N)."""
+    from opticalflow_tpu_torch.solve import multigrid
+
+    _check_fused(S, binv, x, b, coarse_shape=coarse_shape, checked=True)
+    _count("MGT_PLAIN_CALLS")
+    return multigrid.smooth_restrict(S, binv, x, b, damp, coarse_shape)
+
+
+def mg_smooth_restrict(S: torch.Tensor, binv: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                       damp: float, coarse_shape, checked: bool = False):
+    """The last pre-sweep of a probed level and its restricted residual
+    (:func:`mg_smooth_restrict_ref`) in one launch of kernel B6 on CUDA
+    tensors, S read once for both, bit for bit its plain version; CPU
+    tensors through the plain version."""
+    if _on_cpu(S, binv, x, b):
+        return mg_smooth_restrict_ref(S, binv, x, b, damp, coarse_shape)
+    B, M, N, Mc, Nc = _check_fused(S, binv, x, b, coarse_shape=coarse_shape, checked=checked)
+    _cuda_fields(binv.device, x=x, b=b)
+    x1 = x.new_empty(x.shape)
+    out = x.new_empty(x.shape[:-2] + (Mc, Nc))
+    _launch_mgt(x.device, 1, out, S=S, binv=binv, x=x, b=b, out2=x1,
+                shape=(B, 1, M, N, Mc, Nc), damp=damp, mode=MGT_SWEEP_RESTRICT)
+    return x1, out
+
+
+def mg_prolong_smooth_ref(S: torch.Tensor, binv: torch.Tensor, x: torch.Tensor, e: torch.Tensor,
+                          b: torch.Tensor, damp: float) -> torch.Tensor:
+    """Plain version of B6's prolong-add-sweep: ``multigrid.prolong_smooth``,
+    the sweep from xp = x + P e, xp + damp Binv (b - S xp)."""
+    from opticalflow_tpu_torch.solve import multigrid
+
+    _check_fused(S, binv, x, b, e=e, checked=True)
+    _count("MGT_PLAIN_CALLS")
+    return multigrid.prolong_smooth(S, binv, x, e, b, damp)
+
+
+def mg_prolong_smooth(S: torch.Tensor, binv: torch.Tensor, x: torch.Tensor, e: torch.Tensor,
+                      b: torch.Tensor, damp: float, checked: bool = False) -> torch.Tensor:
+    """The prolong-add and the first post-sweep of a probed level
+    (:func:`mg_prolong_smooth_ref`) in one launch of kernel B6 on CUDA
+    tensors (x + P e never written), bit for bit its plain version; CPU
+    tensors through the plain version."""
+    if _on_cpu(S, binv, x, e, b):
+        return mg_prolong_smooth_ref(S, binv, x, e, b, damp)
+    B, M, N, Mc, Nc = _check_fused(S, binv, x, b, e=e, checked=checked)
+    _cuda_fields(binv.device, x=x, e=e, b=b)
+    out = x.new_empty(x.shape)
+    return _launch_mgt(x.device, 1, out, S=S, binv=binv, x=x, b=b, e=e,
+                       shape=(B, 1, M, N, Mc, Nc), damp=damp, mode=MGT_PROLONG_SWEEP)

@@ -14,11 +14,14 @@ run in stages (:class:`Stages`): a probed level's sweep
 (:func:`smooth_level`), the fine level's sweep around its matvec's output
 (:func:`smooth_fine`), the residual restricted to the next level
 (:func:`residual_restrict`), the correction prolonged and added
-(:func:`prolong_add`) and the stencil apply (:func:`stencil_matvec`).  A
-hierarchy carries its route (:data:`ROUTES`): ``'kernels'``, kernels B5
-and B6 (``ops.cuda_kernels.mg_*``: ~30 launches a V-cycle at 126² in
-place of ~480 torch ops; the stages above are their plain versions, which
-they equal bit for bit and which run on CPU tensors), or ``'torch'``, the
+(:func:`prolong_add`), the stencil apply (:func:`stencil_matvec`) and, at
+a probed level with the Jacobi smoother, the last pre-sweep with the
+residual-and-restrict (:func:`smooth_restrict`) and the prolong-add with
+the first post-sweep (:func:`prolong_smooth`).  A hierarchy carries its
+route (:data:`ROUTES`): ``'kernels'``, kernels B5 and B6
+(``ops.cuda_kernels.mg_*``: 22 launches a V-cycle of 5 levels in place of
+~480 torch ops; the stages above are their plain versions, which they
+equal bit for bit and which run on CPU tensors), or ``'torch'``, the
 stages themselves (any dtype; the solve's float64 oracles).  With the
 kernel at level 0, :func:`v_cycle` is the counterpart of both the JAX
 ``v_cycle`` and ``v_cycle_aligned`` (which its docstring calls identical).
@@ -243,6 +246,24 @@ def prolong_add(x: Optional[torch.Tensor], e: torch.Tensor,
     return fine if x is None else x + fine
 
 
+def smooth_restrict(S: torch.Tensor, binv: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                    damp: float, coarse_shape: Tuple[int, int]):
+    """The last pre-sweep of a probed level and its restricted residual,
+    (x1, R (b - S x1)) with x1 = :func:`smooth_level` from ``x``: the two
+    plain stages in turn, the plain version of kernel B6's
+    sweep-residual-restrict."""
+    x1 = smooth_level(S, binv, x, b, damp)
+    return x1, residual_restrict(S, x1, b, None, coarse_shape)
+
+
+def prolong_smooth(S: torch.Tensor, binv: torch.Tensor, x: torch.Tensor, e: torch.Tensor,
+                   b: torch.Tensor, damp: float) -> torch.Tensor:
+    """The coarse correction added, x + P e, and the first post-sweep from
+    it: the two plain stages in turn, the plain version of kernel B6's
+    prolong-add-sweep."""
+    return smooth_level(S, binv, prolong_add(x, e, tuple(x.shape[-2:])), b, damp)
+
+
 def gs_sweep(matvec, binv, masks, x, b, reverse: bool = False):
     """One 4-colour block Gauss-Seidel sweep, colours 0..3 (3..0 with
     ``reverse``): x += Binv (b - A x) on the pixels of each colour in turn;
@@ -284,19 +305,24 @@ class Stages(NamedTuple):
     smooth_fine: Callable  # (binv, x, b, y, damp): smooth_fine
     residual_restrict: Callable  # (S, x, b, y, coarse_shape)
     prolong_add: Callable  # (x, e, fine_shape)
+    smooth_restrict: Callable  # (S, binv, x, b, damp, coarse_shape) -> (x1, r_c)
+    prolong_smooth: Callable  # (S, binv, x, e, b, damp)
 
 
 # 'torch': the plain functions (the route of matvec 'xla' and 'gspmd', whose
 # solves may be float64); 'kernels': kernels B5 and B6 (cuda_kernels), whose
 # S and binv setup and take have checked once (``checked=True``).
 ROUTES = {
-    "torch": Stages(stencil_matvec, smooth_level, smooth_fine, residual_restrict, prolong_add),
+    "torch": Stages(stencil_matvec, smooth_level, smooth_fine, residual_restrict, prolong_add,
+                    smooth_restrict, prolong_smooth),
     "kernels": Stages(
         functools.partial(cuda_kernels.mg_stencil_apply, checked=True),
         functools.partial(cuda_kernels.mg_smooth, checked=True),
         functools.partial(cuda_kernels.mg_smooth_fine, checked=True),
         functools.partial(cuda_kernels.mg_residual_restrict, checked=True),
-        cuda_kernels.mg_prolong_add),
+        cuda_kernels.mg_prolong_add,
+        functools.partial(cuda_kernels.mg_smooth_restrict, checked=True),
+        functools.partial(cuda_kernels.mg_prolong_smooth, checked=True)),
 }
 
 
@@ -393,36 +419,50 @@ def _descend(h: MGHierarchy, lvl: int, b_l: torch.Tensor, n_smooth: int, smoothe
              damp: float, sweeps: int) -> torch.Tensor:
     """Recursive V-cycle descent from level ``lvl`` (zero initial guess).
     Level 0 runs the caller's matvec and the stages around its output; a
-    probed level runs the stages on its stencil alone."""
+    probed level runs the stages on its stencil alone, and with the Jacobi
+    smoother fuses its last pre-sweep into the residual-and-restrict (where
+    that sweep starts from a guess) and its prolong-add into the first
+    post-sweep (where there is one)."""
     if lvl == len(h.levels) - 1:
         return h.coarse_solve(b_l)
     level, stages = h.levels[lvl], ROUTES[h.route]
     S = level.stencil  # None at level 0
-
-    def smooth(x, reverse):
-        if smoother == "gs":
-            masks = color_masks(*level.shape, device=b_l.device)
-            return gs_sweep(level.matvec, level.binv, masks, x, b_l, reverse=reverse)
-        for _ in range(sweeps):
-            if S is not None:
-                x = stages.smooth(S, level.binv, x, b_l, damp)
-            else:
-                y = None if x is None else level.matvec(x)
-                x = stages.smooth_fine(level.binv, x, b_l, y, damp)
-        return x
-
-    x = None
-    for _ in range(n_smooth):
-        x = smooth(x, reverse=False)
     nxt = h.levels[lvl + 1]
-    if S is not None:
+
+    def sweep(x):
+        if S is not None:
+            return stages.smooth(S, level.binv, x, b_l, damp)
+        y = None if x is None else level.matvec(x)
+        return stages.smooth_fine(level.binv, x, b_l, y, damp)
+
+    def gs(x, reverse):
+        masks = color_masks(*level.shape, device=b_l.device)
+        return gs_sweep(level.matvec, level.binv, masks, x, b_l, reverse=reverse)
+
+    n_gs = n_smooth if smoother == "gs" else 0
+    n_sweeps = 0 if n_gs else n_smooth * sweeps  # Jacobi sweeps on each side
+    fuse_down = S is not None and n_sweeps >= 2  # the last one starts from a guess
+    fuse_up = S is not None and n_sweeps >= 1
+    x = None
+    for _ in range(n_gs):
+        x = gs(x, reverse=False)
+    for _ in range(n_sweeps - fuse_down):
+        x = sweep(x)
+    if fuse_down:
+        x, r_c = stages.smooth_restrict(S, level.binv, x, b_l, damp, nxt.shape)
+    elif S is not None:
         r_c = stages.residual_restrict(S, x, b_l, None, nxt.shape)
     else:
         r_c = stages.residual_restrict(None, None, b_l, level.matvec(x), nxt.shape)
     e = _descend(h, lvl + 1, r_c, n_smooth, smoother, damp, sweeps)
-    x = stages.prolong_add(x, e, level.shape)
-    for _ in range(n_smooth):
-        x = smooth(x, reverse=True)
+    if fuse_up:
+        x = stages.prolong_smooth(S, level.binv, x, e, b_l, damp)
+    else:
+        x = stages.prolong_add(x, e, level.shape)
+    for _ in range(n_sweeps - fuse_up):
+        x = sweep(x)
+    for _ in range(n_gs):
+        x = gs(x, reverse=True)
     return x
 
 
@@ -432,10 +472,13 @@ def v_cycle(h: MGHierarchy, b: torch.Tensor, n_smooth: int = 1, smoother: str = 
     usable as a Krylov preconditioner.  ``smoother``: ``'jacobi'`` (damped
     block-Jacobi, ``sweeps`` of ``damp`` each) or ``'gs'`` (4-colour block
     Gauss-Seidel, colours reversed on the way up); anything else raises
-    ``ValueError``.  On the ``'kernels'`` route a Jacobi V-cycle is, per
-    level, one B5 launch a sweep (after the fine matvec at level 0), one B6
-    residual-and-restrict and one B6 prolong-and-add, and the coarsest LU
-    solve."""
+    ``ValueError``.  On the ``'kernels'`` route a Jacobi V-cycle is, at
+    level 0, one B5 launch a sweep (after the fine matvec but the first),
+    one B6 residual-and-restrict and one B6 prolong-and-add; at a probed
+    level, one B5 launch a sweep but the last before the restriction and
+    the first after the prolongation, which B6 fuses with them; and the
+    coarsest LU solve.  With sweeps 2 and 5 levels: 4 B1, 10 B5 and 8 B6
+    launches."""
     if smoother not in SMOOTHERS:
         raise ValueError(f"unknown smoother {smoother!r}; expected one of {SMOOTHERS}")
     return _descend(h, 0, b, n_smooth, smoother, damp, sweeps)

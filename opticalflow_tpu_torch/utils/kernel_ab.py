@@ -1,7 +1,7 @@
-"""A/B of the port's kernels B1, B2, B3 and B4 against another version of
-their sources, on one card:
+"""A/B of the port's kernels B1, B2, B3, B4 and B6 against another version
+of their sources, on one card:
 
-    python -m opticalflow_tpu_torch.utils.kernel_ab OTHER_CSRC_DIR [--kernels B4]
+    python -m opticalflow_tpu_torch.utils.kernel_ab OTHER_CSRC_DIR [--kernels B4,B6]
 
 builds the kernels that ``OTHER_CSRC_DIR`` holds (e.g. the ``csrc`` of an
 older checkout, unpacked with ``git archive``) beside this checkout's
@@ -14,8 +14,12 @@ interior as one tile (mesh (1, 1, 1)), as the windows route's 2 x 2
 tiles of 511x511 in one launch, and one exchange-route launch on a tile of
 511x511 and the halo lines ``spmd.exchange_halos`` gives it; compat;
 B4 at each shape of ``DF32_SHAPES``, both dy rules, operator and residual
-mode, on a blob's packed df32 data (``df32_cases.blob_operands``)),
-checks whether both builds give
+mode, on a blob's packed df32 data (``df32_cases.blob_operands``); B6's
+instances at each path's level 0 and level 1 and its setup's transfers at
+K = 27 (``mg_cases.transfer_cases``, ``probe_cases``), where a fused stage
+of this build meets the two launches it replaces in a build without it,
+B5's sweep and B6's residual-and-restrict, or B6's prolong-add and B5's
+sweep), checks whether both builds give
 bitwise the same output (and prints the largest relative difference per
 field, max|this - other| / max|other|), and times each on the device alone,
 every launch through the wrappers' checks (CUDA-graph replays,
@@ -27,8 +31,8 @@ over 67 TFLOP/s of float32, whichever is larger; the share of it each build
 reaches; for B4 also the issue ceiling, its operations one issue slot
 each, and each B4 build's registers, spills and resident warps an SM) and
 the card's name and power limit.  Exits non-zero when an output is not
-bitwise equal to the other build's (bits compared for B4: signed zeros
-and NaN).  ``--kernels`` picks the kernels (default all).
+bitwise equal to the other build's (bits compared for B4 and B6: signed
+zeros and NaN).  ``--kernels`` picks the kernels (default B1-B4).
 
 B3 is called in the form each build takes: a ``csrc`` whose C entry point
 is ``el_matvec_extended`` (before B3 read tiles in place) on pre-extended
@@ -41,6 +45,7 @@ operands of the later form.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import os
 import statistics
 import subprocess
@@ -287,12 +292,126 @@ def df32_ab(libraries, rounds: int, card: str, dev) -> bool:
     return ok
 
 
+# B6's C entry point before the fused stages: (S, x, b, y, e, out, B, K, Mf,
+# Nf, Mc, Nc, mode, stream), no fused modes
+LEGACY_B6 = ("mg_transfer", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+             ("-fmad=false",))
+
+
+def b6_calls(library, legacy: bool, case, args, dev):
+    """(launch, result) of one B6 case of ``mg_cases`` in one build: its
+    instance's launch, or in a ``legacy`` build without the fused stages the
+    two launches a fused stage replaces."""
+    from opticalflow_tpu_torch.utils import mg_cases
+
+    b6, b5 = library["mg_transfer"], library["mg_smooth"]
+    box = {}
+
+    def transfer(K, out, S=None, binv=None, x=None, b=None, y=None, e=None, out2=None,
+                 shape=(), damp=0.0, mode=0):
+        p = ck._ptr
+        if legacy:
+            rc = ck._call(b6, dev, K, (p(S), p(x), p(b), p(y), p(e), out.data_ptr(), *shape, mode))
+        else:
+            rc = ck._call(b6, dev, K, (p(S), p(binv), p(x), p(b), p(y), p(e), out.data_ptr(),
+                                       p(out2), *shape, damp, mode))
+        assert rc == 0, rc
+        return out
+
+    def sweep(S, binv, x, b, damp):
+        out = torch.empty_like(x)
+        B, M, N = x.shape[0], x.shape[-2], x.shape[-1]
+        rc = ck._call(b5, dev, 1, (S.data_ptr(), binv.data_ptr(), x.data_ptr(), b.data_ptr(),
+                                   None, out.data_ptr(), B, 1, M, N, damp, ck.MG_SWEEP))
+        assert rc == 0, rc
+        return out
+
+    kind = case.kind
+    if kind in ("sweep-residual-restrict", "prolong-add-sweep"):
+        S, binv, x = args[:3]
+        B, M, N = x.shape[0], x.shape[-2], x.shape[-1]
+        Mc, Nc = (M + 1) // 2, (N + 1) // 2
+        shape = (B, 1, M, N, Mc, Nc)
+        if kind == "sweep-residual-restrict":
+            b, damp = args[3], args[4]
+
+            def launch():
+                if legacy:
+                    x1 = sweep(S, binv, x, b, damp)
+                    r = transfer(1, x.new_empty(B, 3, Mc, Nc), S=S, x=x1, b=b, shape=shape,
+                                 mode=ck.MGT_RESTRICT + 3)
+                else:
+                    x1 = torch.empty_like(x)
+                    r = transfer(1, x.new_empty(B, 3, Mc, Nc), S=S, binv=binv, x=x, b=b, out2=x1,
+                                 shape=shape, damp=damp, mode=ck.MGT_SWEEP_RESTRICT)
+                box["out"] = (x1, r)
+        else:
+            e, b, damp = args[3], args[4], args[5]
+
+            def launch():
+                if legacy:
+                    xp = transfer(1, torch.empty_like(x), x=x, e=e, shape=shape,
+                                  mode=ck.MGT_PROLONG + 1)
+                    box["out"] = sweep(S, binv, xp, b, damp)
+                else:
+                    box["out"] = transfer(1, torch.empty_like(x), S=S, binv=binv, x=x, b=b, e=e,
+                                          shape=shape, damp=damp, mode=ck.MGT_PROLONG_SWEEP)
+    elif mg_cases.KINDS[kind] == "B6" and kind.startswith("prolong"):
+        x, e, fine = args
+        B, K, M, N, Mc, Nc, mode = ck._check_prolong(x, e, fine)
+
+        def launch():
+            box["out"] = transfer(K, e.new_empty(tuple(e.shape[:-2]) + (M, N)), x=x, e=e,
+                                  shape=(B, K, M, N, Mc, Nc), mode=mode)
+    else:
+        S, x, b, y, coarse = args
+        B, K, M, N, Mc, Nc, mode = ck._check_restrict(S, x, b, y, coarse)
+        fine = x if S is not None else y
+
+        def launch():
+            box["out"] = transfer(K, fine.new_empty(fine.shape[:-2] + (Mc, Nc)), S=S, x=x, b=b,
+                                  y=y, shape=(B, K, M, N, Mc, Nc), mode=mode)
+    return launch, lambda: box["out"]
+
+
+def b6_ab(libraries, legacy: bool, rounds: int, card: str, dev) -> bool:
+    """B6's instances at each path's level 0 and level 1 and the setup's
+    transfers at K = 27: bitwise output, device us warm and cold in turns,
+    the share of the bound; whether every output was bitwise equal."""
+    from opticalflow_tpu_torch.utils import mg_cases
+
+    ok = True
+    for path in mg_cases.PATHS:
+        for index, case in enumerate(mg_cases.transfer_cases(path) + mg_cases.probe_cases(path)):
+            args = mg_cases.operands(case, dev, seed=index)[2]
+            calls = {name: b6_calls(lib, legacy and name == "other", case, args, dev)
+                     for name, lib in libraries.items()}
+            outs = {}
+            for name, (launch, result) in calls.items():
+                launch()
+                out = result()
+                outs[name] = tuple(t.clone() for t in out) if isinstance(out, tuple) else (
+                    out.clone(),)
+            same = all(df32_cases.bitwise_equal(a, b) for a, b in zip(outs["other"], outs["this"]))
+            rel = rel_diff_per_field(outs["this"][-1], outs["other"][-1])
+            ok &= same
+            del outs
+            size = case.B * case.K * case.M * case.N
+            med = _timed_ab(calls, 20 if size > 3e7 else 100, rounds)
+            _report(f"B6 {case.kind} {path} {case.B} x K={case.K} {case.M}x{case.N}", same, rel,
+                    mg_cases.bound(case)[0] * 1e3, med, card)
+            del calls, args
+            torch.cuda.empty_cache()
+    return ok
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("other_csrc", help="csrc directory of the other version")
     parser.add_argument("--rounds", type=int, default=3)
     parser.add_argument("--kernels", default="B1,B2,B3,B4",
-                        help="comma-separated kernels to compare (default all)")
+                        help="comma-separated kernels to compare, of B1-B4 and B6 "
+                             "(default B1-B4)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA device")
@@ -304,6 +423,10 @@ def main(argv=None) -> int:
     with open(os.path.join(other, "el_matvec_ext.cu")) as fh:
         legacy = "el_matvec_tiled" not in fh.read()
     entries = dict(ck.ENTRY_POINTS, **({"el_matvec_ext.cu": LEGACY_B3} if legacy else {}))
+    with open(os.path.join(other, "mg_transfer.cu")) as fh:
+        legacy_b6 = "out2" not in fh.read()
+    if legacy_b6:
+        entries["mg_transfer.cu"] = LEGACY_B6
     libraries, logs = {}, {}
     for name, build in (("other", lambda: ck.build(other, entries)), ("this", ck.load_library)):
         ck.BUILD_LOG = ""
@@ -318,6 +441,9 @@ def main(argv=None) -> int:
         for name in ("other", "this"):
             print(f"B4 {name} build: {b4_usage(libraries[name], logs[name], dev)}", flush=True)
         ok &= df32_ab(libraries, args.rounds, card, dev)
+    if "B6" in labels:
+        print(f"B6 other build: {'without' if legacy_b6 else 'with'} the fused stages", flush=True)
+        ok &= b6_ab(libraries, legacy_b6, args.rounds, card, dev)
     return 0 if ok else 1
 
 

@@ -6,15 +6,18 @@ for their checks and timings on the card (chip_smoke.py phase 3):
 * :data:`PATHS`: each path's pairs and fine interior, and :func:`path_cases`
   the launches its V-cycle makes: at level 0 the epilogue after the fine
   matvec, the zero guess, the residual-and-restrict of the matvec's output
-  and the prolong-and-add; at each probed level the sweep, the zero guess,
-  the residual-and-restrict and the prolong-and-add;
+  and the prolong-and-add; at each probed level the zero guess, the
+  sweep-residual-restrict, the prolong-add-sweep and the sweep;
+  :func:`transfer_cases` every B6 instance at a path's level 0 and level 1
+  (K = 1), and :func:`probe_cases` the setup's transfers at K = 27;
 * :func:`operands`: the wrapper, its plain version and random operands of
   one case (signed zeros among the field values);
 * :func:`bound`: the least time of one call: every operand byte once over
   the memory rate, or the operations over the float32 rate;
-* :func:`library_call`: the PyTorch call that computes a transfer alone
-  (``F.conv2d`` / ``F.conv_transpose2d`` with the bilinear kernel), the
-  yardstick of B6; the port never calls it.
+* :func:`library_call`: the one PyTorch call that computes the same
+  function as a B6 instance, where there is one: R y (``F.conv2d`` with
+  the bilinear kernel) and P e (``F.conv_transpose2d``); the port never
+  calls it.
 """
 
 from __future__ import annotations
@@ -40,7 +43,12 @@ DAMP = 0.7
 # kernel of each kind
 KINDS = {"sweep": "B5", "zero guess": "B5", "fine": "B5", "apply": "B5",
          "residual-restrict": "B6", "restrict y": "B6", "restrict b - y": "B6",
-         "restrict S x": "B6", "prolong-add": "B6", "prolong": "B6"}
+         "restrict S x": "B6", "prolong-add": "B6", "prolong": "B6",
+         "sweep-residual-restrict": "B6", "prolong-add-sweep": "B6"}
+# the kinds that sweep, at K = 1 only
+SWEEPS = ("sweep", "zero guess", "fine", "sweep-residual-restrict", "prolong-add-sweep")
+# the PyTorch call that computes the same function, by kind
+LIBRARY = {"restrict y": "conv2d", "prolong": "conv_transpose2d"}
 
 
 class Case(NamedTuple):
@@ -71,8 +79,25 @@ def path_cases(path: str) -> List[Case]:
              ("fine", "zero guess", "restrict b - y", "prolong-add")]
     for M, N in shapes[1:-1][: PROBED_LEVELS[path]]:
         cases += [Case(kind, B, 1, M, N) for kind in
-                  ("sweep", "zero guess", "residual-restrict", "prolong-add")]
+                  ("zero guess", "sweep-residual-restrict", "prolong-add-sweep", "sweep")]
     return cases
+
+
+def transfer_cases(path: str) -> List[Case]:
+    """Every B6 instance, the six standalone and the two fused, at
+    ``path``'s level 0 and level 1 (pairs as the path's, K = 1)."""
+    B, m, n = PATHS[path]
+    return [Case(kind, B, 1, M, N) for M, N in level_shapes(m, n)[:2]
+            for kind, label in KINDS.items() if label == "B6"]
+
+
+def probe_cases(path: str) -> List[Case]:
+    """The transfers of ``path``'s setup probes (K = 27): R y of the fine
+    matvec's output and P e at level 0, P e and R (S x) at level 1."""
+    B, m, n = PATHS[path]
+    (m0, n0), (m1, n1) = level_shapes(m, n)[:2]
+    return [Case("restrict y", B, 27, m0, n0), Case("prolong", B, 27, m0, n0),
+            Case("prolong", B, 27, m1, n1), Case("restrict S x", B, 27, m1, n1)]
 
 
 def operands(case: Case, device, seed: int):
@@ -108,6 +133,10 @@ def operands(case: Case, device, seed: int):
                          (S, x, None, None, coarse)),
         "prolong-add": (ck.mg_prolong_add, ck.mg_prolong_add_ref, (x, field(coarse), (M, N))),
         "prolong": (ck.mg_prolong_add, ck.mg_prolong_add_ref, (None, field(coarse), (M, N))),
+        "sweep-residual-restrict": (ck.mg_smooth_restrict, ck.mg_smooth_restrict_ref,
+                                    (S, binv, x, b, DAMP, coarse)),
+        "prolong-add-sweep": (ck.mg_prolong_smooth, ck.mg_prolong_smooth_ref,
+                              (S, binv, x, field(coarse), b, DAMP)),
     }
     return table[kind]
 
@@ -118,12 +147,18 @@ def bound(case: Case):
     output it writes, once each, over the memory rate ("bytes"), or its
     float32 operations over the float32 rate ("operations"), whichever is
     larger.  Operations a pixel: the stencil 27 products and 26 sums for
-    each of 3 fields, the block row 5 for each, the damped update 2."""
+    each of 3 fields, the block row 5 for each, the damped update 2.  A
+    fused stage moves what its two stages move less what stays on chip:
+    x1 is written once and read by no one, S read once."""
     kind, B, K, M, N = case
     fine, coarse = B * K * M * N, B * K * ((M + 1) // 2) * ((N + 1) // 2)
     stencil, pairs = 3 * 53, B * M * N
+    sweep = stencil + 3 + 15 + 6
     floats, ops = {
-        "sweep": (99 * pairs, (stencil + 3 + 15 + 6) * pairs),
+        "sweep-residual-restrict": (99 * pairs + 3 * coarse,
+                                    sweep * pairs + (stencil + 3) * fine + 24 * coarse),
+        "prolong-add-sweep": (99 * pairs + 3 * coarse, 12 * fine + sweep * pairs),
+        "sweep": (99 * pairs, sweep * pairs),
         "zero guess": (15 * pairs, 18 * pairs),
         "fine": (21 * pairs, 24 * pairs),
         "apply": (81 * pairs + 6 * fine, stencil * fine),
@@ -141,22 +176,20 @@ def bound(case: Case):
 
 
 def library_call(case: Case, args) -> Optional[Callable[[], torch.Tensor]]:
-    """The one PyTorch call that computes a B6 case's transfer alone, on the
-    case's fine (restriction) or coarse (prolongation) field: a convolution
-    with the [0.5, 1, 0.5] x [0.5, 1, 0.5] kernel, stride 2, padding 1
-    (transposed for the prolongation); for a residual-and-restrict or a
-    prolong-and-add the transfer alone, as no single call adds the residual
-    or the sum; None for B5.  Run it under
+    """The one PyTorch call that computes the same function as a B6 case,
+    on the same field: R y as a convolution with the [0.5, 1, 0.5] x [0.5,
+    1, 0.5] kernel, stride 2, padding 1, and P e as the transposed one;
+    None for every other kind, which no single call computes (a residual, a
+    sum or a sweep besides the transfer).  Run it under
     ``torch.backends.cudnn.allow_tf32 = False``."""
     kind, B, K, M, N = case
-    if kind not in ("restrict y", "restrict b - y", "residual-restrict", "restrict S x",
-                    "prolong", "prolong-add"):
+    if kind not in LIBRARY:
         return None
-    field = args[1] if kind.startswith("prolong") else (args[3] if args[3] is not None else args[1])
+    field = args[1] if kind == "prolong" else args[3]
     line = torch.tensor([0.5, 1.0, 0.5], device=field.device)
     weight = (line[:, None] * line[None, :])[None, None]
     planes = field.reshape(-1, 1, *field.shape[-2:])
-    if kind.startswith("prolong"):
+    if kind == "prolong":
         pad = (M + 1) % 2, (N + 1) % 2  # an even fine side is one longer than 2 Mc - 1
         return lambda: F.conv_transpose2d(planes, weight, stride=2, padding=1, output_padding=pad)
     return lambda: F.conv2d(planes, weight, stride=2, padding=1)

@@ -1,7 +1,9 @@
 """The multigrid V-cycle's stages (solve.multigrid), the plain versions of
-kernels B5 and B6, against the JAX package on the same numpy-seeded
-inputs, and the restructured V-cycle against JAX's and against the
-op-by-op composition it replaced.
+kernels B5 and B6 (B6's fused stages included: the last pre-sweep with the
+residual-and-restrict, the prolong-add with the first post-sweep; the
+standalone transfers also at the probes' K = 27), against the JAX package
+on the same numpy-seeded inputs, and the restructured V-cycle against
+JAX's and against the op-by-op composition it replaced.
 
 Tolerances: float64 for every comparison with JAX.  The stencil apply sums
 its 27 terms in JAX's order, one at a time: it equals JAX's function run op
@@ -96,6 +98,72 @@ def test_residual_restrict_and_prolong_add_match_jax(shape):
         return {"b - S x": jmg.restrict(b - Sx, (mc, nc)), "b - y": jmg.restrict(b - y, (mc, nc)),
                 "S x": jmg.restrict(Sx, (mc, nc)), "y": jmg.restrict(y, (mc, nc)),
                 "x + P e": x + jmg.prolong(e, (m, n)), "P e": jmg.prolong(e, (m, n))}
+
+    want = transfers(S, x, b, y, e)
+    for name, value in want.items():
+        np.testing.assert_allclose(got[name].numpy(), np.asarray(value), rtol=1e-12, atol=1e-12,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("shape", [(61, 190), (2, 2), (1, 1)])
+def test_fused_stages_match_jax(shape):
+    """B6's fused stages' plain versions (``smooth_restrict``,
+    ``prolong_smooth``), directly and through their wrappers on CPU
+    tensors, against JAX's ``jacobi_sweep`` followed by ``restrict(b -
+    matvec(x1))``, and ``x + prolong(e)`` followed by ``jacobi_sweep``."""
+    B, (m, n), damp = 2, shape, 0.7
+    mc, nc = multigrid.coarse_dims(m, n)
+    S, binv = _level(9, B, m, n)
+    rng = _rng(10)
+    x, b = rng.standard_normal((B, 3, m, n)), rng.standard_normal((B, 3, m, n))
+    e = rng.standard_normal((B, 3, mc, nc))
+    x1, r_c = multigrid.smooth_restrict(_t(S), _t(binv), _t(x), _t(b), damp, (mc, nc))
+    up = multigrid.prolong_smooth(_t(S), _t(binv), _t(x), _t(e), _t(b), damp)
+    plain = ck.MGT_PLAIN_CALLS
+    x1_w, r_w = ck.mg_smooth_restrict(_t(S), _t(binv), _t(x), _t(b), damp, (mc, nc))
+    up_w = ck.mg_prolong_smooth(_t(S), _t(binv), _t(x), _t(e), _t(b), damp)
+    assert ck.MGT_PLAIN_CALLS == plain + 2
+    for got, want in ((x1_w, x1), (r_w, r_c), (up_w, up)):
+        assert torch.equal(got, want)
+    for k in range(B):
+        mv = functools.partial(jmg.stencil_matvec, jnp.asarray(S[k]))
+        bj = _jax_binv(binv[k])
+        x1_j = jmg.jacobi_sweep(mv, bj, jnp.asarray(x[k]), b[k], damp, sweeps=1)
+        r_j = jmg.restrict(b[k] - mv(x1_j), (mc, nc))
+        up_j = jmg.jacobi_sweep(mv, bj, x[k] + jmg.prolong(jnp.asarray(e[k]), (m, n)), b[k],
+                                damp, sweeps=1)
+        for got, want in ((x1[k], x1_j), (r_c[k], r_j), (up[k], up_j)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("shape", [(61, 190), (2, 2)])
+def test_transfers_of_the_probes_match_jax(shape):
+    """B6's standalone restrictions and prolongations at the probes' K = 27
+    (S broadcast over K) against JAX's, vmapped over the probes."""
+    B, K, (m, n) = 2, 27, shape
+    mc, nc = multigrid.coarse_dims(m, n)
+    S, _ = _level(11, B, m, n)
+    rng = _rng(12)
+    x, b, y = (rng.standard_normal((B, K, 3, m, n)) for _ in range(3))
+    e = rng.standard_normal((B, K, 3, mc, nc))
+    got = {
+        "b - S x": multigrid.residual_restrict(_t(S), _t(x), _t(b), None, (mc, nc)),
+        "S x": multigrid.residual_restrict(_t(S), _t(x), None, None, (mc, nc)),
+        "y": multigrid.residual_restrict(None, None, None, _t(y), (mc, nc)),
+        "b - y": multigrid.residual_restrict(None, None, _t(b), _t(y), (mc, nc)),
+        "P e": multigrid.prolong_add(None, _t(e), (m, n)),
+        "x + P e": multigrid.prolong_add(_t(x), _t(e), (m, n)),
+    }
+
+    @jax.jit
+    @jax.vmap
+    def transfers(S, x, b, y, e):
+        def one(x, b, y, e):
+            Sx = jmg.stencil_matvec(S, x)
+            return {"b - S x": jmg.restrict(b - Sx, (mc, nc)), "S x": jmg.restrict(Sx, (mc, nc)),
+                    "y": jmg.restrict(y, (mc, nc)), "b - y": jmg.restrict(b - y, (mc, nc)),
+                    "P e": jmg.prolong(e, (m, n)), "x + P e": x + jmg.prolong(e, (m, n))}
+        return jax.vmap(one)(x, b, y, e)
 
     want = transfers(S, x, b, y, e)
     for name, value in want.items():
@@ -216,9 +284,11 @@ def test_plain_versions_count_on_cpu_tensors():
     plain = ck.MG_PLAIN_CALLS, ck.MGT_PLAIN_CALLS
     multigrid.v_cycle(h, torch.ones(2, 3, m, n, dtype=torch.float64), sweeps=2)
     probed = len(h.levels) - 2  # levels above the coarsest, level 0 excluded
-    # a level: 4 sweeps, 1 residual-and-restrict, 1 prolong-and-add
+    # level 0: 4 sweeps, 1 residual-and-restrict, 1 prolong-and-add; a probed
+    # level: the zero guess and the last post-sweep, the sweep-residual-
+    # restrict and the prolong-add-sweep
     assert (ck.MG_PLAIN_CALLS - plain[0], ck.MGT_PLAIN_CALLS - plain[1]) == (
-        4 * (probed + 1), 2 * (probed + 1))
+        4 + 2 * probed, 2 + 2 * probed)
     assert (ck.MG_LAUNCHES, ck.MGT_LAUNCHES) == launches
 
 
@@ -261,6 +331,29 @@ def test_v_cycle_stages_keep_the_op_by_op_order_in_float32(shape):
     z = multigrid.v_cycle(h, r, sweeps=2)
     assert z.dtype == torch.float32
     assert torch.equal(z.view(torch.int32), _v_cycle_op_by_op(h, r, 2).view(torch.int32))
+
+
+@pytest.mark.parametrize("n_smooth,sweeps", [(1, 2), (1, 1), (2, 3)])
+def test_fused_route_equals_the_torch_route_bit_for_bit(n_smooth, sweeps):
+    """On CPU tensors the kernel route's V-cycle runs the fused stages'
+    plain versions wherever a probed level's Jacobi sweeps allow them (one
+    sweep-residual-restrict and one prolong-add-sweep a probed level), and
+    equals the 'torch' route, the same stages called directly, bit for bit
+    in float32."""
+    m, n = 24, 31
+    h = _hierarchy(m, n, dtype=np.float32)
+    r = torch.from_numpy(_rng(13).standard_normal((2, 3, m, n)).astype(np.float32))
+    plain = ck.MG_PLAIN_CALLS, ck.MGT_PLAIN_CALLS
+    z = multigrid.v_cycle(h, r, n_smooth=n_smooth, sweeps=sweeps)
+    probed = len(h.levels) - 2
+    each_side = n_smooth * sweeps
+    fused_down = each_side >= 2
+    assert (ck.MG_PLAIN_CALLS - plain[0], ck.MGT_PLAIN_CALLS - plain[1]) == (
+        2 * each_side + probed * (2 * each_side - 1 - fused_down), 2 + 2 * probed)
+    z_t = multigrid.v_cycle(h._replace(route="torch"), r, n_smooth=n_smooth, sweeps=sweeps)
+    assert torch.equal(z.view(torch.int32), z_t.view(torch.int32))
+    assert torch.equal(z.view(torch.int32),
+                       _v_cycle_op_by_op(h, r, n_smooth * sweeps).view(torch.int32))
 
 
 @pytest.mark.parametrize("order", ["library", "partials"])
