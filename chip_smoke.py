@@ -39,12 +39,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    and cold beside their bound (R y and P e beside ``F.conv2d`` /
    ``F.conv_transpose2d``); and one V-cycle at the sweep's chunk timed, on
    the kernels and through the plain stages, with what each launches (22
-   kernels on the kernels, checked);
+   kernels on the kernels, checked), then captured as a Krylov step is
+   into a CUDA graph and replayed: 22 launches counted a replay, no plain
+   call, the eager V-cycle's bits;
 4. the 256x256 path once warm and once timed: ``variational_optical_flow``
    on the bench movie (13 frames of 256x256, 12 pairs, two-pass warm
    start, alpha_s = alpha_r = 1000), with every kernel's counters set to 0
    just before the timed run and read just after, and the flow of pairs 1
    and 11 held against the float64 assembled direct solve; then the same
+   solve with its Krylov steps run on the card without capture (the
+   private ``krylov._uncaptured``): the graphed run's flow, iterations,
+   residuals and flags bit for bit; then the same
    solve in the reference's TPU mode, float32 Krylov reductions
    (``high_precision_reductions=False``): 12/12 converged, B1 launched, and
    pairs 1 and 11 within 1e-3 px of the same oracle; then the phase split
@@ -95,7 +100,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain version), solves/s, chunks, converged cells and each chunk's
    largest iteration count, every statistic finite on the converged cells,
    and three interior cells held against the serial path
-   (``batched=False``); phase 3 holds B1 against its plain version at the
+   (``batched=False``), then the grid again with its Krylov steps
+   uncaptured: every statistic, flag and chunk's largest iteration count
+   bit for bit the graphed run's; phase 3 holds B1 against its plain version at the
    sweep's chunk shape (the default chunk's 150 pairs of 126x126, K = 1
    and 27) and times it (as it times B1 at the bench's 11 pairs of 254x254
    at K = 27);
@@ -126,7 +133,13 @@ Every solve of phases 4-7 and 9 refines through kernel B4 and runs its
 V-cycles on kernels B5 and B6: each path run counts their launches beside
 its matvec kernel's and fails where B4, B5 or B6 did not launch or any
 plain version ran (the float64 oracles, matvec ``'xla'``, run the plain
-stages and are not path runs).
+stages and are not path runs).  Every Krylov solve on the card (BiCGStab,
+CG, FGMRES: the main solve and each correction solve of the refinement)
+replays its step from a CUDA graph captured once a solve: each path run
+prints its host syncs, graph captures, replays and the captures' host
+seconds, and fails where it replayed none; the one exception is the
+exchange route of phase 6 (its matvec copies between devices), which
+keeps the eager loop and fails where it captured.
 
 The second-to-last line is a JSON object with one entry per kernel: its
 launches in each path's run (``launches_by_path``) and their sum
@@ -788,6 +801,43 @@ def check_mg_kernels(dev, card, entries):
           f"{sum(V_CYCLE_LAUNCHES.values())} with both fused B6 stages, 28 without", flush=True)
     if launches != V_CYCLE_LAUNCHES:
         raise AssertionError(f"a V-cycle launched {launches}, expected {V_CYCLE_LAUNCHES}")
+    v_cycle_replays(n_sweep, card)
+
+
+def v_cycle_replays(n, card, replays=3):
+    """The V-cycle at the sweep's chunk of ``n`` cells captured as a Krylov
+    step is (``krylov._Step``), then replayed ``replays`` times, the counters
+    set to 0 just before the replays and read just after: each replay must
+    count ``V_CYCLE_LAUNCHES`` (the counts a capture records, added back per
+    replay) and no plain call, and its output must equal the V-cycle run
+    eagerly bit for bit."""
+    import functools
+
+    from opticalflow_tpu_torch.solve import krylov, multigrid
+    from opticalflow_tpu_torch.utils.sweep_chunks import _sweep_system, sweep_movie
+
+    hierarchy = _sweep_system(sweep_movie(), n)[-1]
+    u = torch.randn(n, 3, 126, 126, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(1))
+    v_cycle = functools.partial(multigrid.v_cycle, hierarchy, sweeps=2)
+    out = torch.empty_like(u)
+    step = krylov._Step(lambda: out.copy_(v_cycle(u)), u.device)
+    step()  # runs the V-cycle once, then captures it
+    ref = v_cycle(u)
+    reset_counters()
+    for _ in range(replays):
+        step()
+    torch.cuda.synchronize()
+    counts = read_counters()
+    per_replay = {k: counts[k] / replays for k in V_CYCLE_LAUNCHES}
+    plain = sum(counts[f"{k} plain"] for k in V_CYCLE_LAUNCHES)
+    equal = torch.equal(out, ref)
+    print(f"V-cycle at {n} cells replayed from a CUDA graph {replays} times: launches per replay "
+          f"{per_replay} (expected {V_CYCLE_LAUNCHES}), plain calls {plain}, graph replays "
+          f"{counts['graph replays']}, output bitwise equal to the eager V-cycle {equal}  "
+          f"[{card}]", flush=True)
+    if per_replay != V_CYCLE_LAUNCHES or plain or not equal:
+        raise AssertionError(f"V-cycle under replay: {per_replay}, plain {plain}, equal {equal}")
 
 
 def kernel_usage():
@@ -834,17 +884,23 @@ def read_counters():
             "B3 plain": ck.EXT_PLAIN_CALLS, "B4": ck.DF_LAUNCHES, "B4 plain": ck.DF_PLAIN_CALLS,
             "B5": ck.MG_LAUNCHES, "B5 plain": ck.MG_PLAIN_CALLS, "B6": ck.MGT_LAUNCHES,
             "B6 plain": ck.MGT_PLAIN_CALLS,
-            "host syncs": observability.counts().get("krylov/host_syncs", 0)}
+            "host syncs": observability.counts().get("krylov/host_syncs", 0),
+            "graph captures": observability.counts().get("krylov/graph_captures", 0),
+            "graph replays": observability.counts().get("krylov/graph_replays", 0),
+            "capture s": round(observability.span_statistics().get(
+                "krylov/capture", {"total": 0.0})["total"], 4)}
 
 
-def bypassed(counts, kernel):
+def bypassed(counts, kernel, graphs=True):
     """Whether a path run missed its matvec kernel, the refinement's B4 or
     the V-cycle's B5 or B6, or ran another matvec kernel or any plain
-    version."""
+    version; or, with ``graphs``, replayed no Krylov step from a CUDA graph
+    (without, the exchange route's eager loop: captured one)."""
     others = [k for k in ("B1", "B2", "B3") if k != kernel]
     plains = [f"{k} plain" for k in ("B1", "B2", "B3", "B4", "B5", "B6")]
     missed = any(counts[k] == 0 for k in (kernel, "B4", "B5", "B6"))
-    return missed or any(counts[k] for k in others + plains)
+    route = counts["graph replays"] == 0 if graphs else counts["graph captures"] > 0
+    return missed or route or any(counts[k] for k in others + plains)
 
 
 def large_grid_path(large, dev, card):
@@ -983,9 +1039,10 @@ def distinct_device_runs(large, oracle, movie, windows, dev, card):
           f"{4 * counts_w['B3']}), seam copies {seams}, EPE {e:.3e} px vs the float64 oracle "
           f"(limit {EPE_LIMIT_PX:g}), bitwise equal to the windows route {equal}  [{card}]",
           flush=True)
-    if not conv.all() or bypassed(counts, "B3") or counts["B3"] != 4 * counts_w["B3"]:
-        raise AssertionError(f"exchange route: not converged or not 4 B3 launches per "
-                             f"application: {counts}")
+    eager = bypassed(counts, "B3", graphs=False)  # the route's eager Krylov loop
+    if not conv.all() or eager or counts["B3"] != 4 * counts_w["B3"]:
+        raise AssertionError(f"exchange route: not converged, not the eager loop or not 4 B3 "
+                             f"launches per application: {counts}")
     if not equal or not e < EPE_LIMIT_PX:
         raise AssertionError(f"exchange route differs from the windows route or EPE {e} px")
     runs[f"{LARGE_DIM}x{LARGE_DIM} sharded (1, 2, 2) exchange"] = counts
@@ -1163,6 +1220,12 @@ def sweep_path(card):
               flush=True)
         if not (conv[i, j] and serial["converged"][0, 0]) or max(rel.values()) > SWEEP_REL_TOL:
             raise AssertionError(f"sweep cell ({i}, {j}) differs from the serial path: {rel}")
+    def again():  # the statistics and each chunk's largest iteration count
+        out = vary_regularisation(movie + 1e-4, SPEED_ALPHAS, REMODELLING_ALPHAS, solver=cfg)
+        return dict(out, chunk_its=observability.values()["sweep/chunk_max_iterations"])
+
+    graphed = dict(res, chunk_its=chunk_its)
+    same_bits_uncaptured("sweep path", again, graphed, wall, tuple(graphed), card)
     return counts
 
 
@@ -1406,6 +1469,31 @@ def cli_path(stack, dev, card):
     return runs
 
 
+def same_bits_uncaptured(label, run, graphed, graphed_s, keys, card):
+    """``run()`` again with every Krylov step run on the card without
+    capture (``krylov._uncaptured``, the private entry for this check), the
+    counters set to 0 just before: each array of ``graphed`` under ``keys``
+    (``graphed_s`` seconds, its Krylov steps replayed from CUDA graphs) must
+    equal its uncaptured counterpart bit for bit (NaN where NaN), the
+    iterations included; prints both walls and the uncaptured run's
+    counts."""
+    from opticalflow_tpu_torch.solve import krylov
+
+    reset_counters()
+    t0 = time.perf_counter()
+    with krylov._uncaptured():
+        eager = run()  # returns host arrays: synchronised
+    wall = time.perf_counter() - t0
+    counts = read_counters()
+    same = {k: np.array_equal(np.asarray(graphed[k]), np.asarray(eager[k]),
+                              equal_nan=np.asarray(eager[k]).dtype.kind == "f") for k in keys}
+    print(f"{label}: CUDA graphs {graphed_s:.3f} s, the same steps uncaptured {wall:.3f} s "
+          f"(counts {counts}); bitwise equal {all(same.values())} ({same})  [{card}]",
+          flush=True)
+    if not all(same.values()) or counts["graph captures"]:
+        raise AssertionError(f"{label}: the graphed solve differs from its uncaptured steps")
+
+
 def oracle_epe(movie, result, k):
     """EPE (px) of pair k against the float64 assembled direct solve, its
     planes built in float64 on the CPU."""
@@ -1518,6 +1606,9 @@ def main():
               flush=True)
         if not e < EPE_LIMIT_PX:
             raise AssertionError(f"pair {k}: EPE {e} px")
+    same_bits_uncaptured("main path", lambda: variational_optical_flow(movie_t, **kw), result,
+                         solve_s, ("v_x", "v_y", "remodelling", "iterations", "converged_all",
+                                   "residual_norms"), smi)
     f32_reductions_run(movie_t, movie, kw, smi)
     from opticalflow_tpu_torch.flow.variational import profile_solve_phases
 

@@ -16,8 +16,13 @@ CUDA tensors (its operands packed once per solve), bit for bit the plain
 ``elop.el_residual_df`` / ``el_matvec_df``.
 
 Where the JAX package uses ``vmap`` the port carries a leading pair axis,
-and where it uses ``lax.scan`` / ``lax.while_loop`` the port loops in
-Python.  Warm-start modes:
+and where it uses ``lax.scan`` the port loops in Python.  Each Krylov
+solve, the main one and each correction solve of the refinement, is the
+counterpart of a ``lax.while_loop``: on the card its step is replayed from
+a CUDA graph captured once per solve (solve.krylov), except where the
+matvec copies between devices (``spans_devices``, parallel.spmd's exchange
+route), whose solves keep the eager loop.  The refinement loop itself
+reads its active set from the device at every step.  Warm-start modes:
 
 * ``'sequential'``: each pair starts from the previous pair's solution;
 * ``'cold'``: every pair starts from the initial guess, all pairs batched;
@@ -251,10 +256,16 @@ def solve_frame_pair(
 
     precond = precond_of()
 
-    solve = functools.partial(
-        solvers[method], max_iterations=max_iterations,
-        high_precision_reductions=high_precision_reductions, tol_floor_eps_multiple=tol_floor,
-    )
+    # a matvec that copies between devices keeps the eager Krylov loop
+    spans_devices = getattr(matvec, "spans_devices", False)
+    graphs = krylov._uncaptured if spans_devices else contextlib.nullcontext
+
+    def solve(*args, **kwargs):
+        with graphs():
+            return solvers[method](*args, max_iterations=max_iterations,
+                                   high_precision_reductions=high_precision_reductions,
+                                   tol_floor_eps_multiple=tol_floor, **kwargs)
+
     with _phase(phase_timer, "krylov_main"):
         res = solve(matvec, b_red, x0=u0_red, precond=precond, rtol=rtol)
 

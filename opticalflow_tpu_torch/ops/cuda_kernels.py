@@ -62,7 +62,10 @@ device, dtype, shape and layout, launches its kernel on the current
 stream, and raises on any failure — there is no fallback.  It adds one to
 its launch counter per launch, and a plain version to its own counter per
 call, under a lock, so the counts stay exact when several threads solve
-at once (the sharded solve's workers, parallel.batch).  The first launch
+at once (the sharded solve's workers, parallel.batch).  A launch captured
+into a CUDA graph (the Krylov loops, solve.krylov) is counted once per
+replay of the graph, and not at its capture (:func:`recorded_counts`,
+:func:`add_counts`); its host checks run once, at the capture.  The first launch
 of each kernel on each device, and of each block shape (K = 1 and K > 1),
 holds a lock too: the kernels set their shared-memory limit and cache
 their resident blocks per device on that launch.  :func:`load_library` builds each source of ``ENTRY_POINTS`` with
@@ -74,6 +77,7 @@ flags.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -150,12 +154,39 @@ _LOAD_LOCK = threading.Lock()  # one build, however many threads load at once
 _COUNT_LOCK = threading.Lock()
 _FIRST_USE_LOCK = threading.Lock()
 _LAUNCHED = set()  # (entry point, device index, K > 1) launched once already
+_RECORDING = threading.local()  # .counts: the counts of a capture under way in this thread
 
 
 def _count(name: str) -> None:
-    """Add one to the module counter ``name``."""
+    """Add one to the module counter ``name``; while this thread captures a
+    CUDA graph (:func:`recorded_counts`), to the capture's record instead."""
+    recording = getattr(_RECORDING, "counts", None)
+    if recording is not None:
+        recording[name] = recording.get(name, 0) + 1
+        return
     with _COUNT_LOCK:
         globals()[name] += 1
+
+
+@contextlib.contextmanager
+def recorded_counts():
+    """Within the block this thread's wrapper calls count into the dict it
+    yields, not into the module counters: a CUDA graph's capture launches
+    nothing, and each replay of the graph adds the record back
+    (:func:`add_counts`), so that the counters stay exact under replay."""
+    counts = {}
+    _RECORDING.counts = counts
+    try:
+        yield counts
+    finally:
+        _RECORDING.counts = None
+
+
+def add_counts(counts: Dict[str, int]) -> None:
+    """Add a capture's record (:func:`recorded_counts`) to the counters."""
+    with _COUNT_LOCK:
+        for name, n in counts.items():
+            globals()[name] += n
 
 
 def _nvcc() -> str:

@@ -21,7 +21,10 @@ Where the positions of the mesh lie (parallel.mesh) picks the route:
   lie on distinct devices runs its matvec by parallel.spmd's exchange
   route.  The Krylov vectors, the V-cycle and the dots stay on the row's
   home device.  The results are gathered in pair order on the mesh's first
-  device.
+  device.  Each worker's Krylov solves capture their CUDA graphs
+  thread-locally, on its own device and stream (solve.krylov), except on
+  the exchange route, whose matvec copies between devices: its solves keep
+  the eager Krylov loop.
 
 The private ``_mesh_solve(..., as_distinct=True)`` forces the
 distinct-device routes on a mesh that names one device several times,

@@ -31,7 +31,11 @@ of its own):
   tile, and launches B3 once per tile on its device on the tile and its
   lines; each output is written into its window of the result on the home
   device (in place where the tile lies there, else copied back).  The
-  Krylov vectors and the V-cycle stay on the home device.
+  Krylov vectors and the V-cycle stay on the home device.  The matvec
+  carries ``spans_devices = True``: a CUDA graph of it would span the
+  tiles' devices, so the solves on this route keep the eager Krylov loop
+  (``flow.variational.solve_frame_pair``), the one route on the card that
+  does.
 
 Both routes build the frame blocks once per factory call (the exchange
 route through :func:`exchange_frame`, the port of ``pallas_spmd.py:106-
@@ -302,6 +306,7 @@ def make_sharded_kernel_matvec(
                     window.copy_(y)
             return out
 
+        exchange_matvec.spans_devices = True
         return exchange_matvec
 
     I_tiles, scalars, tx, ty = _tiled_operands(mesh, previous_frame, speed_alpha,
@@ -340,6 +345,7 @@ def make_sharded_xla_matvec(
             return assemble_tiles([[elop.interior_apply(c, u) for c, u in zip(*row)]
                                    for row in zip(planes, u_ext)], home)
 
+        exchange_matvec.spans_devices = True
         return exchange_matvec
 
     I_tiles, scalars, tx, ty = _tiled_operands(mesh, previous_frame, speed_alpha,

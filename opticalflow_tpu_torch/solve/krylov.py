@@ -4,12 +4,24 @@ Counterparts of ``opticalflow_tpu.solve.krylov`` for a batch of
 independent systems: ``b`` is (B, ...), the matvec and preconditioner act
 on the whole batch, and every scalar of a recurrence (BiCGStab's rho,
 alpha, omega, the iteration count, the best and checkpoint norms, the
-stagnation and breakdown flags) is a per-pair (B,) value.  A pair whose own
+stagnation and breakdown flags; FGMRES's column index, Givens rotations,
+residual estimate and guards) is a per-pair (B,) value.  A pair whose own
 exit test has fired is frozen: the batch's step is still computed for it,
 but its state is kept, exactly as under ``jax.vmap`` of the JAX
-``lax.while_loop``.  The loops run on the host and read their exit flags
-from the device once per iteration; those reads are counted as
-``krylov/host_syncs`` (utils.observability).
+``lax.while_loop``.
+
+The JAX solvers are one device program per solve.  Here a loop's step
+(one BiCGStab or CG iteration, one FGMRES Arnoldi column) reads and writes
+fixed state buffers, and on CUDA tensors it is captured once per call into
+a CUDA graph and replayed (:class:`_Step`): the kernels and torch ops of a
+step are launched as one graph, with no host work between them.  The host
+reads the loop's exit from the device once per chunk of ``CHUNK`` steps;
+every such read is counted as ``krylov/host_syncs``, every capture as
+``krylov/graph_captures`` (its host time, the capture alone, as the span
+``krylov/capture``) and every replay as ``krylov/graph_replays``
+(utils.observability).  Steps past a pair's exit inside a chunk leave its
+state as it was, so the results are those of a read after every step, bit
+for bit, whatever ``CHUNK`` is.  On the CPU the same steps run uncaptured.
 """
 
 from __future__ import annotations
@@ -18,13 +30,20 @@ import contextlib
 import threading
 from typing import Callable, NamedTuple, Optional
 
-import numpy as np
 import torch
 
+from opticalflow_tpu_torch.ops import cuda_kernels
 from opticalflow_tpu_torch.utils import observability
 
 MatVec = Callable[[torch.Tensor], torch.Tensor]
 Precond = Callable[[torch.Tensor], torch.Tensor]
+
+# Steps between two reads of a loop's exit.  A read costs a host sync, the
+# card draining its queue before the host launches again; the steps a chunk
+# runs past the last pair's exit cost their device time, and the
+# refinement's correction solves stop after a few steps.  PERF.md (§6)
+# gives the measurements this value was chosen on: 2 against 4 and 8.
+CHUNK = 2
 
 
 class KrylovResult(NamedTuple):
@@ -78,15 +97,113 @@ def full_f32_precision():
                  torch.backends.cudnn.allow_tf32) = _PRECISION["saved"]
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    """Copy a small device tensor to the host, counted as a host sync."""
+# .uncaptured: this thread's steps run without graphs; .capture: its capture
+# stream, graph memory pool and latest graph on each device
+# (:func:`_capture_context`)
+_LOCAL = threading.local()
+
+
+@contextlib.contextmanager
+def _uncaptured():
+    """Within the block this thread's Krylov steps run on CUDA tensors as
+    on the CPU, without capture: for a matvec that copies between devices
+    (parallel.spmd's exchange route), whose graph would span them, and to
+    hold the graphed solve against the same steps uncaptured."""
+    before = getattr(_LOCAL, "uncaptured", False)
+    _LOCAL.uncaptured = True
+    try:
+        yield
+    finally:
+        _LOCAL.uncaptured = before
+
+
+def _capture_context(device: torch.device) -> list:
+    """This thread's capture stream, graph memory pool and latest graph on
+    ``device``, shared by all its captures there: a step captured after
+    another's graph is gone takes the memory that graph held, where a pool
+    of its own would allocate its scratch anew (cudaMalloc) at every
+    capture.  Sharing is safe because a step's scratch is dead once the
+    step ends (its results are copied into buffers allocated outside the
+    pool) and this thread's replays run one after another on its current
+    stream.  The latest graph is kept so that the pool stays in use between
+    two solves: the allocator takes no new capture into a pool whose graphs
+    are all gone."""
+    contexts = getattr(_LOCAL, "capture", None)
+    if contexts is None:
+        contexts = _LOCAL.capture = {}
+    if device.index not in contexts:
+        contexts[device.index] = [torch.cuda.Stream(device), torch.cuda.graph_pool_handle(), None]
+    return contexts[device.index]
+
+
+def _any(flags: torch.Tensor) -> bool:
+    """Whether any of the (B,) device ``flags`` is set: one host sync."""
     observability.add_count("krylov/host_syncs")
-    return t.detach().cpu().numpy()
+    return bool(flags.any())
 
 
-def _mask(flags: np.ndarray, device) -> torch.Tensor:
-    """A host (B,) bool mask on ``device``."""
-    return torch.from_numpy(np.ascontiguousarray(flags)).to(device)
+class _Step:
+    """One step of a loop, ``fn()``, which reads and writes fixed buffers in
+    place.  On the CPU, or under :func:`_uncaptured`, each call runs it.  On
+    a CUDA device the first call runs it on this thread's capture stream
+    (which also takes each kernel's first launch and cuBLAS's workspace out
+    of the capture) and then captures it on that stream into a CUDA graph,
+    in this thread's memory pool (:func:`_capture_context`), thread-locally
+    (several threads may capture at once, each on its own device and
+    stream); every later call replays the graph on the current stream.  The
+    kernel counters a capture records are added back at every replay.  A
+    failed capture or replay raises."""
+
+    def __init__(self, fn: Callable[[], None], device: torch.device):
+        self.fn, self.device = fn, device
+        self.captures = device.type == "cuda" and not getattr(_LOCAL, "uncaptured", False)
+        self.graph, self.counts = None, None
+
+    def __call__(self) -> None:
+        if not self.captures:
+            self.fn()
+            return
+        with torch.cuda.device(self.device):
+            if self.graph is None:
+                self._run_and_capture()
+                return
+            self.graph.replay()
+        cuda_kernels.add_counts(self.counts)
+        observability.add_count("krylov/graph_replays")
+
+    def _run_and_capture(self) -> None:
+        current = torch.cuda.current_stream(self.device)
+        context = _capture_context(self.device)
+        stream, pool, _ = context
+        stream.wait_stream(current)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            self.fn()
+            with observability.span("krylov/capture"), cuda_kernels.recorded_counts() as counts:
+                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    self.fn()
+                finally:
+                    graph.capture_end()
+        current.wait_stream(stream)
+        self.graph, self.counts, context[2] = graph, counts, graph
+        observability.add_count("krylov/graph_captures")
+
+
+def _run_chunks(step: _Step, active: Callable[[], torch.Tensor], max_steps: int) -> None:
+    """Steps in chunks of ``CHUNK`` while ``active()`` (B,) has a pair set,
+    read before each chunk; at most ``max_steps`` steps, after which no
+    pair is active."""
+    done = 0
+    while done < max_steps and _any(active()):
+        for _ in range(min(CHUNK, max_steps - done)):
+            step()
+        done += CHUNK
+
+
+def _commit(buffers, values) -> None:
+    for buf, value in zip(buffers, values):
+        buf.copy_(value)
 
 
 def bicgstab(
@@ -122,32 +239,29 @@ def bicgstab(
     B = b.shape[0]
     dev = b.device
 
-    r = b - matvec(x0)
-    rhat = r
+    rhat = b - matvec(x0)
     b_norm = torch.sqrt(dot(b, b))
     eff_rtol = max(rtol, tol_floor_eps_multiple * torch.finfo(b.dtype).eps)
     tol = torch.clamp(eff_rtol * b_norm, min=atol)
     tiny = torch.finfo(b.dtype).tiny
 
-    x = x0
-    p = torch.zeros_like(b)
-    v = torch.zeros_like(b)
-    rho = torch.ones(B, dtype=acc, device=dev)
-    alpha = torch.ones(B, dtype=acc, device=dev)
-    omega = torch.ones(B, dtype=acc, device=dev)
-    k = torch.zeros(B, dtype=torch.int32, device=dev)
-    res_norm = torch.sqrt(dot(r, r))
-    breakdown = torch.zeros(B, dtype=torch.bool, device=dev)
-    stagnated = torch.zeros(B, dtype=torch.bool, device=dev)
-    best_x = x0
-    best_norm = res_norm
-    ckpt_norm = res_norm
-    while True:
-        active = (k < max_iterations) & ~stagnated & (res_norm > tol) & ~breakdown
-        observability.add_count("krylov/host_syncs")
-        if not bool(active.any()):
-            break
+    # the state buffers, in place across the loop
+    res0 = torch.sqrt(dot(rhat, rhat))
+    state = (x0.clone(), rhat.clone(), torch.zeros_like(b), torch.zeros_like(b),
+             torch.ones(B, dtype=acc, device=dev), torch.ones(B, dtype=acc, device=dev),
+             torch.ones(B, dtype=acc, device=dev), torch.zeros(B, dtype=torch.int32, device=dev),
+             res0, torch.zeros(B, dtype=torch.bool, device=dev),
+             torch.zeros(B, dtype=torch.bool, device=dev), x0.clone(), res0.clone(),
+             res0.clone())
 
+    def active():
+        k, res_norm, breakdown, stagnated = state[7:11]
+        return (k < max_iterations) & ~stagnated & (res_norm > tol) & ~breakdown
+
+    def iteration():
+        (x, r, p, v, rho, alpha, omega, k, res_norm, breakdown, stagnated, best_x, best_norm,
+         ckpt_norm) = state
+        a = active()
         rho_new = dot(rhat, r)
         denom = rho * omega
         beta = (rho_new * alpha) / torch.where(denom.abs() > 0, denom, tiny)
@@ -173,23 +287,18 @@ def bicgstab(
         stall = (best_new <= 4.0 * tol) & (best_new > 0.95 * ckpt_norm)
 
         # commit the step for active pairs only (frozen pairs keep state)
-        a = active
         av = _bc(a, b)
-        best_x = torch.where(av & _bc(is_best, b), x_new, best_x)
-        x = torch.where(av, x_new, x)
-        r = torch.where(av, r_new, r)
-        p = torch.where(av, p_new, p)
-        v = torch.where(av, v_new, v)
-        rho = torch.where(a, rho_new, rho)
-        alpha = torch.where(a, alpha_new, alpha)
-        omega = torch.where(a, omega_new, omega)
-        res_norm = torch.where(a, res_new, res_norm)
-        breakdown = torch.where(a, sbreak, breakdown)
-        stagnated = torch.where(a, at_ckpt & stall, stagnated)
-        ckpt_norm = torch.where(a & at_ckpt, best_new, ckpt_norm)
-        best_norm = torch.where(a, best_new, best_norm)
-        k = torch.where(a, k_new, k)
+        _commit(state, (
+            torch.where(av, x_new, x), torch.where(av, r_new, r), torch.where(av, p_new, p),
+            torch.where(av, v_new, v), torch.where(a, rho_new, rho),
+            torch.where(a, alpha_new, alpha), torch.where(a, omega_new, omega),
+            torch.where(a, k_new, k), torch.where(a, res_new, res_norm),
+            torch.where(a, sbreak, breakdown), torch.where(a, at_ckpt & stall, stagnated),
+            torch.where(av & _bc(is_best, b), x_new, best_x), torch.where(a, best_new, best_norm),
+            torch.where(a & at_ckpt, best_new, ckpt_norm)))
 
+    _run_chunks(_Step(iteration, dev), active, max_iterations)
+    best_x, k = state[11], state[7]
     # recompute the true residual once (guards against drift of the
     # recursively updated r)
     true_res = b - matvec(best_x)
@@ -230,15 +339,18 @@ def cg(
     tol = torch.clamp(eff_rtol * b_norm, min=atol)
     tiny = torch.finfo(b.dtype).tiny
 
-    x, p = x0, z
-    rz = dot(r, z)
-    k = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
-    res_norm = torch.sqrt(dot(r, r))
-    while True:
-        active = (k < max_iterations) & (res_norm > tol)
-        observability.add_count("krylov/host_syncs")
-        if not bool(active.any()):
-            break
+    # the state buffers (x, r, p, rz, k, res_norm), in place across the loop
+    state = (x0.clone(), r, z.clone(), dot(r, z),
+             torch.zeros(b.shape[0], dtype=torch.int32, device=b.device),
+             torch.sqrt(dot(r, r)))
+
+    def active():
+        k, res_norm = state[4:]
+        return (k < max_iterations) & (res_norm > tol)
+
+    def iteration():
+        x, r, p, rz, k, res_norm = state
+        a = active()
         ap = matvec(p)
         pap = dot(p, ap)
         alpha = rz / torch.where(pap.abs() > 0, pap, tiny)
@@ -249,14 +361,14 @@ def cg(
         beta = rz_new / torch.where(rz.abs() > 0, rz, tiny)
         p_new = z_new + (_bc(beta, p) * p.to(acc)).to(b.dtype)
 
-        av = _bc(active, b)
-        x = torch.where(av, x_new, x)
-        r = torch.where(av, r_new, r)
-        p = torch.where(av, p_new, p)
-        rz = torch.where(active, rz_new, rz)
-        res_norm = torch.where(active, torch.sqrt(dot(r_new, r_new)), res_norm)
-        k = torch.where(active, k + 1, k)
+        av = _bc(a, b)
+        _commit(state, (
+            torch.where(av, x_new, x), torch.where(av, r_new, r), torch.where(av, p_new, p),
+            torch.where(a, rz_new, rz), torch.where(a, k + 1, k),
+            torch.where(a, torch.sqrt(dot(r_new, r_new)), res_norm)))
 
+    _run_chunks(_Step(iteration, b.device), active, max_iterations)
+    x, k = state[0], state[4]
     true_res = b - matvec(x)
     true_norm = torch.sqrt(dot(true_res, true_res))
     return KrylovResult(x=x, iterations=k, residual_norm=true_norm, converged=true_norm <= tol)
@@ -289,15 +401,20 @@ def fgmres(
     the full cycle's true residual disagrees with the estimate), the stop
     on <1% progress per cycle, and keeping each pair's best iterate.
 
-    Batching: the Arnoldi basis V (B, restart+1, N) and the flexible basis
-    Z (B, restart, N) live on the device; every pair still in its cycle
-    fills column j = the cycle's step, so the writes are one slice, masked
-    to those pairs.  The Hessenberg column of each step (B, j+2) and the
-    two norms come to the host in one read, where the Givens rotations, the
-    estimate and the guards run in ``b.dtype`` as in the JAX solver, and the
-    small triangular solves too.  The projections are batched products in
-    the accumulation dtype (float64 for float32 fields by default; V is
-    kept in it), independent of the caller's TF32 setting.
+    Built as the JAX solver is: the Arnoldi basis V (B, restart+1, N) and
+    the flexible basis Z (B, restart, N) are kept at full size, both in the
+    accumulation dtype (float64 for float32 fields by default), and each
+    pair's column index ``j`` is a device tensor.  CGS2 projects on the
+    whole of V, whose rows not yet written are zero; the earlier rotations
+    run over all ``restart`` positions, masked to those below ``j``; the new
+    rotation, the guards, ``g``, the estimate and ``rmax`` are device ops in
+    ``b.dtype``.  One Arnoldi column is one :class:`_Step`, replayed from a
+    CUDA graph on the card, with the cycle's exit read once per chunk of
+    columns.  The least squares of each restart (``solve_triangular`` over
+    each pair's columns) and the truncation guard run on the device too;
+    the restart reads the device once, twice where a pair's truncations
+    are evaluated.  The products are batched in the accumulation dtype,
+    independent of the caller's TF32 setting.
     """
     acc = acc_dtype(b.dtype, high_precision_reductions)
 
@@ -309,137 +426,147 @@ def fgmres(
     if x0 is None:
         x0 = torch.zeros_like(b)
     dt, dev = b.dtype, b.device
-    npdt = torch.empty((), dtype=dt).numpy().dtype
     B, N, m = b.shape[0], b[0].numel(), int(restart)
     tiny = torch.finfo(dt).tiny
-    np_tiny = npdt.type(tiny)
 
     b_norm = torch.sqrt(dot(b, b))
     eff_rtol = max(rtol, tol_floor_eps_multiple * torch.finfo(dt).eps)
-    tol_dev = torch.clamp(eff_rtol * b_norm, min=atol)
+    tol = torch.clamp(eff_rtol * b_norm, min=atol)
     r0 = b - matvec(x0)
-    tol, res_norm = _host(torch.stack([tol_dev, torch.sqrt(dot(r0, r0))]))
     x = x0
-    k = np.zeros(B, np.int64)
-    stalled = np.zeros(B, bool)
+    res_norm = torch.sqrt(dot(r0, r0))
+    k = torch.zeros(B, dtype=torch.int32, device=dev)
+    stalled = torch.zeros(B, dtype=torch.bool, device=dev)
 
-    while True:
-        outer = (k < max_iterations) & (res_norm > tol) & ~stalled
-        if not outer.any():
-            break
+    # the cycle's buffers, in place across its columns and its restarts
+    V = torch.zeros((B, m + 1, N), dtype=acc, device=dev)
+    Z = torch.zeros((B, m, N), dtype=acc, device=dev)
+    R = torch.zeros((B, m + 1, m), dtype=dt, device=dev)
+    rot0 = torch.zeros((B, m, 2), dtype=dt, device=dev)  # rotation i: (c, -s) ...
+    rot1 = torch.zeros((B, m, 2), dtype=dt, device=dev)  # ... and (s, c)
+    g = torch.zeros((B, m + 1), dtype=dt, device=dev)
+    j = torch.zeros(B, dtype=torch.int64, device=dev)
+    est = torch.zeros(B, dtype=dt, device=dev)
+    brk = torch.zeros(B, dtype=torch.bool, device=dev)
+    rmax = torch.zeros(B, dtype=dt, device=dev)
+    act = torch.zeros(B, dtype=torch.bool, device=dev)
+    k_cycle = torch.zeros_like(k)  # k at the cycle's start
+    pairs = torch.arange(B, device=dev)
+    rows = torch.arange(m + 1, device=dev)
+
+    def column():
+        """Arnoldi column j of every pair, committed where ``act``."""
+        vj = V[pairs, j]
+        z = precond(vj.to(dt).reshape(b.shape))
+        w = matvec(z).reshape(B, N)
+        w_entry = torch.sqrt(dot(w, w)).to(dt)
+        h1 = torch.bmm(V, w.to(acc)[:, :, None])
+        w = w - torch.bmm(V.transpose(1, 2), h1)[..., 0].to(dt)
+        h2 = torch.bmm(V, w.to(acc)[:, :, None])
+        w = w - torch.bmm(V.transpose(1, 2), h2)[..., 0].to(dt)
+        h = (h1 + h2)[..., 0].to(dt)  # (B, m+1)
+        hj1 = torch.sqrt(dot(w, w)).to(dt)
+        v_next = (w / torch.clamp(hj1, min=tiny)[:, None]).to(acc)
+        j1, jz = torch.clamp(j + 1, max=m), torch.clamp(j, max=m - 1)  # in range when frozen
+        a = act[:, None]
+        V[pairs, j1] = torch.where(a, v_next, V[pairs, j1])
+        Z[pairs, jz] = torch.where(a, z.reshape(B, N).to(acc), Z[pairs, jz])
+
+        # the new column [h with position j+1 := hj1], the earlier rotations
+        col = torch.where(rows == (j + 1)[:, None], hj1[:, None], h)
+        applied = rows[None, :m] < j[:, None]
+        for i in range(m):
+            hi = col[:, i : i + 2]
+            turned = rot0[:, i] * hi[:, :1] + rot1[:, i] * hi[:, 1:]
+            col[:, i : i + 2] = torch.where(applied[:, i : i + 1], turned, hi)
+
+        # the new rotation, eliminating col[j+1]
+        a1, a2 = col[pairs, j], col[pairs, j1]
+        denom = torch.sqrt(a1 * a1 + a2 * a2)
+        safe = torch.clamp(denom, min=tiny)
+        c_new = torch.where(denom > 0, a1 / safe, 1.0)
+        s_new = torch.where(denom > 0, a2 / safe, 0.0)
+        rdd = c_new * a1 + s_new * a2
+        col[pairs, j] = rdd
+        col[pairs, j1] = torch.zeros_like(a2)
+        gj = g[pairs, j]
+        rmax_new = torch.maximum(rmax, rdd.abs())
+        brk_new = (hj1 <= 3e-4 * w_entry) | (rdd.abs() <= 1e-5 * rmax_new)
+
+        rot0[pairs, jz] = torch.where(a, torch.stack([c_new, -s_new], dim=1), rot0[pairs, jz])
+        rot1[pairs, jz] = torch.where(a, torch.stack([s_new, c_new], dim=1), rot1[pairs, jz])
+        g_j1 = torch.where(act, -s_new * gj, g[pairs, j1])
+        g[pairs, j] = torch.where(act, c_new * gj, gj)
+        g[pairs, j1] = g_j1
+        R[pairs, :, jz] = torch.where(a, col, R[pairs, :, jz])
+        j_new = j + act
+        est_new = torch.where(act, g_j1.abs(), est)
+        brk_new = torch.where(act, brk_new, brk)
+        _commit((est, rmax, brk, j), (est_new, torch.where(act, rmax_new, rmax), brk_new, j_new))
+        act.copy_(act & (j_new < m) & (est_new > tol) & ~brk_new
+                  & (k_cycle + j_new < max_iterations))
+
+    step = _Step(column, dev)
+
+    def solution_for(cols):
+        # least squares over each pair's first `cols` columns (R is
+        # triangular, so the truncated problem is exactly the shorter
+        # Arnoldi least squares)
+        used = rows[None, :m] < cols[:, None]
+        Rm = R[:, :m, :m] + torch.diag_embed(torch.where(used, 0.0, 1.0).to(dt))
+        gm = torch.where(used, g[:, :m], 0.0)
+        y = torch.linalg.solve_triangular(Rm, gm[:, :, None], upper=True)
+        y = torch.where(used[:, :, None], y, 0.0)
+        xc = x + torch.bmm(y.to(acc).transpose(1, 2), Z)[:, 0].to(dt).reshape(x.shape)
+        rc = b - matvec(xc)
+        return xc, torch.sqrt(dot(rc, rc))
+
+    def restarted(x_new, res_new):
+        """The outer state after the cycle, and its exit."""
+        better = outer & (res_new < res_norm)
+        k_new = torch.where(outer, k + j.to(k.dtype), k)
+        stalled_new = torch.where(outer, res_new > 0.99 * res_norm, stalled)
+        res_keep = torch.where(better, res_new, res_norm)
+        return ((torch.where(_bc(better, x), x_new, x), k_new, res_keep, stalled_new),
+                (k_new < max_iterations) & (res_keep > tol) & ~stalled_new)
+
+    outer = (k < max_iterations) & (res_norm > tol) & ~stalled
+    going = _any(outer)
+    while going:
         r = b - matvec(x)
-        beta_dev = torch.sqrt(dot(r, r)).to(dt)
-        V = torch.zeros((B, m + 1, N), dtype=acc, device=dev)
-        V[:, 0] = (r.reshape(B, N) / torch.clamp(beta_dev, min=tiny)[:, None]).to(acc)
-        Z = torch.zeros((B, m, N), dtype=dt, device=dev)
-        beta = _host(beta_dev)
-
-        R = np.zeros((B, m + 1, m), npdt)
-        cs = np.zeros((B, m), npdt)
-        sn = np.zeros((B, m), npdt)
-        g = np.zeros((B, m + 1), npdt)
+        beta = torch.sqrt(dot(r, r)).to(dt)
+        V.zero_()
+        V[:, 0] = (r.reshape(B, N) / torch.clamp(beta, min=tiny)[:, None]).to(acc)
+        for buf in (Z, R, rot0, rot1, g, j, brk, rmax):
+            buf.zero_()
         g[:, 0] = beta
-        j = np.zeros(B, np.int64)
-        est = beta.copy()
-        brk = np.zeros(B, bool)
-        rmax = np.zeros(B, npdt)
-        act = outer & (est > tol) & (k < max_iterations)
+        est.copy_(beta)
+        k_cycle.copy_(k)
+        act.copy_(outer & (est > tol) & (k < max_iterations))
         t = 0
-        while act.any():
-            # every pair still in the cycle is at column t
-            z = precond(V[:, t].to(dt).reshape(b.shape))
-            w = matvec(z).reshape(B, N)
-            w_entry = torch.sqrt(dot(w, w)).to(dt)
-            Vt = V[:, : t + 1]
-            h1 = torch.bmm(Vt, w.to(acc)[:, :, None])
-            w = w - torch.bmm(Vt.transpose(1, 2), h1)[..., 0].to(dt)
-            h2 = torch.bmm(Vt, w.to(acc)[:, :, None])
-            w = w - torch.bmm(Vt.transpose(1, 2), h2)[..., 0].to(dt)
-            h = (h1 + h2)[..., 0].to(dt)
-            hj1 = torch.sqrt(dot(w, w)).to(dt)
-            v_next = (w / torch.clamp(hj1, min=tiny)[:, None]).to(acc)
-            if act.all():
-                V[:, t + 1] = v_next
-                Z[:, t] = z.reshape(B, N)
-            else:
-                idx = torch.from_numpy(np.flatnonzero(act)).to(dev)
-                V[idx, t + 1] = v_next[idx]
-                Z[idx, t] = z.reshape(B, N)[idx]
-            col_host = _host(torch.cat([h, hj1[:, None], w_entry[:, None]], dim=1))
+        while True:  # a cycle ends by its restart length at the latest
+            for _ in range(min(CHUNK, m - t)):
+                step()
+            t += CHUNK
+            if t >= m or not _any(act):
+                break
 
-            with np.errstate(all="ignore"):  # frozen pairs may hold anything
-                col = np.zeros((B, m + 1), npdt)
-                col[:, : t + 2] = col_host[:, : t + 2]  # h[:t+1], then hj1 at t+1
-                for i in range(t):  # the earlier rotations
-                    ci, si = cs[:, i], sn[:, i]
-                    hi, hi1 = col[:, i].copy(), col[:, i + 1].copy()
-                    col[:, i] = ci * hi + si * hi1
-                    col[:, i + 1] = -si * hi + ci * hi1
-                a1, a2 = col[:, t].copy(), col[:, t + 1].copy()
-                denom = np.sqrt(a1 * a1 + a2 * a2)
-                safe = np.maximum(denom, np_tiny)
-                c_new = np.where(denom > 0, a1 / safe, npdt.type(1))
-                s_new = np.where(denom > 0, a2 / safe, npdt.type(0))
-                rdd = c_new * a1 + s_new * a2
-                col[:, t] = rdd
-                col[:, t + 1] = 0
-                gj = g[:, t].copy()
-                rmax_new = np.maximum(rmax, np.abs(rdd))
-                brk_new = ((col_host[:, t + 1] <= 3e-4 * col_host[:, t + 2])
-                           | (np.abs(rdd) <= 1e-5 * rmax_new))
-            a = act
-            cs[a, t] = c_new[a]
-            sn[a, t] = s_new[a]
-            g[a, t] = (c_new * gj)[a]
-            g[a, t + 1] = (-s_new * gj)[a]
-            R[a, :, t] = col[a]
-            est[a] = np.abs(g[a, t + 1])
-            rmax[a] = rmax_new[a]
-            brk[a] = brk_new[a]
-            j[a] += 1
-            act = act & (j < m) & (est > tol) & ~brk & (k + j < max_iterations)
-            t += 1
-
-        jmax = int(j.max())
-        Z_acc = Z[:, :jmax].to(acc)
-        del V, Z
-
-        def solution_for(cols):
-            # least squares over each pair's first `cols` columns (R is
-            # triangular, so the truncated problem is exactly the shorter
-            # Arnoldi least squares)
-            used = np.arange(m)[None, :] < cols[:, None]
-            unused = np.where(used, npdt.type(0), npdt.type(1))
-            Rm = R[:, :m, :m] + unused[:, :, None] * np.eye(m, dtype=npdt)
-            gm = np.where(used, g[:, :m], 0).astype(npdt)
-            y = torch.linalg.solve_triangular(torch.from_numpy(Rm),
-                                              torch.from_numpy(gm)[:, :, None], upper=True)
-            y = torch.where(torch.from_numpy(used)[:, :, None], y, 0)
-            y = y[:, :jmax, 0].to(device=dev, dtype=acc)
-            xc = x + torch.bmm(y[:, None, :], Z_acc)[:, 0].to(dt).reshape(x.shape)
-            rc = b - matvec(xc)
-            return xc, torch.sqrt(dot(rc, rc))
-
-        x_new, r_dev = solution_for(j)
-        res_new = _host(r_dev)
+        x_new, res_new = solution_for(j)
         if truncation_guard:
             disagree = outer & (res_new > 2.0 * est) & (res_new > tol)
         else:
-            disagree = outer.copy()
-        if disagree.any():
+            disagree = outer.clone()
+        after, outer_next = restarted(x_new, res_new)
+        observability.add_count("krylov/host_syncs")
+        any_disagree, going = torch.stack([disagree.any(), outer_next.any()]).tolist()
+        if any_disagree:
             # evaluated for the whole batch, taken only where a pair disagrees
-            x_h, r_h = solution_for((j + 1) // 2)
-            x_q, r_q = solution_for((j + 3) // 4)
-            for xc, rc in zip((x_h, x_q), _host(torch.stack([r_h, r_q]))):
+            for xc, rc in (solution_for((j + 1) // 2), solution_for((j + 3) // 4)):
                 take = disagree & (rc < res_new)
-                x_new = torch.where(_bc(_mask(take, dev), x), xc, x_new)
-                res_new = np.where(take, rc, res_new)
-        better = outer & (res_new < res_norm)
-        x = torch.where(_bc(_mask(better, dev), x), x_new, x)
-        stalled = np.where(outer, res_new > 0.99 * res_norm, stalled)
-        res_norm = np.where(better, res_new, res_norm)
-        k = np.where(outer, k + j, k)
+                x_new = torch.where(_bc(take, x), xc, x_new)
+                res_new = torch.where(take, rc, res_new)
+            after, outer_next = restarted(x_new, res_new)
+            going = _any(outer_next)
+        (x, k, res_norm, stalled), outer = after, outer_next
 
-    residual_norm = torch.from_numpy(res_norm).to(dev)
-    return KrylovResult(x=x, iterations=torch.from_numpy(k.astype(np.int32)).to(dev),
-                        residual_norm=residual_norm, converged=residual_norm <= tol_dev)
+    return KrylovResult(x=x, iterations=k, residual_norm=res_norm, converged=res_norm <= tol)

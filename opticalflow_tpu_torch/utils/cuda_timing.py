@@ -15,6 +15,12 @@
 
 Both warm up first and return the median of ``rounds`` timed runs.
 
+* :func:`busy_share`: one call of a function under ``torch.profiler``,
+  with the card's kernel time (the union of the kernels' intervals in the
+  trace, graph replays' kernels included) over the host's wall time of the
+  call.  The profiler records every host op, so the wall, and with it the
+  idle share, is somewhat larger than without it.
+
 The card's rates, from the H100 SXM data sheet, for the bounds of the
 kernels (``chip_smoke.py``, :mod:`kernel_ab`, :mod:`df32_cases`):
 ``HBM_BYTES_PER_S``, ``F32_FLOPS_PER_S`` and ``F32_ISSUE_PER_S``.
@@ -22,8 +28,12 @@ kernels (``chip_smoke.py``, :mod:`kernel_ab`, :mod:`df32_cases`):
 
 from __future__ import annotations
 
+import json
+import os
 import statistics
-from typing import Callable
+import tempfile
+import time
+from typing import Callable, Tuple
 
 import torch
 
@@ -95,3 +105,31 @@ def _graph_ms(fn: Callable, launches: int, rounds: int) -> float:
     del graph
     torch.cuda.synchronize()
     return statistics.median(times)
+
+
+def busy_share(fn: Callable) -> Tuple[object, float, float]:
+    """``(fn(), wall seconds, kernel seconds)`` of one call of ``fn`` under
+    ``torch.profiler`` (CPU and CUDA activity), the card synchronised
+    before and after; kernel seconds are the union of the intervals of the
+    trace's kernels, so kernels that overlap count once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") == "kernel" and "dur" in e)
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return out, wall, busy * 1e-6

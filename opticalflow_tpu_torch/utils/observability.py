@@ -7,8 +7,11 @@ milliseconds), ``reset_spans`` and ``profile_trace``, here a
 ``torch.profiler`` trace in place of ``jax.profiler``'s.  A span measures
 host time: around CUDA work it measures the enqueue unless the block ends
 in a synchronisation (the variational solve's span does, since it copies
-its results to the host).  Counters count host events, such as the
-device-to-host reads of the Krylov loop condition (``krylov/host_syncs``).
+its results to the host).  Counters count host events: the Krylov loops'
+device-to-host reads of their exit (``krylov/host_syncs``, every read from
+the card), their CUDA graph captures and replays
+(``krylov/graph_captures``, ``krylov/graph_replays``; each capture's host
+time is the span ``krylov/capture``), see solve.krylov.
 Spans, counters and series are recorded under a lock, so several threads
 may record at once (the sharded solve's workers): a span keeps its own
 start time, so spans opened in different threads need no common nesting.

@@ -11,8 +11,15 @@ then this.  Every solve runs with a phase timer (``solve_frame_pair``'s
 ``phase_timer``: the device synchronised at each phase's start and end),
 so each path gives its wall time (host clock, synchronised), the seconds
 of each phase summed over its solves, and the df32 refinement's share of
-the wall.  The paths, as chip_smoke.py drives
-them:
+the wall; its host syncs (``krylov/host_syncs``: every read of the card
+by the Krylov loops and the refinement), CUDA graph captures and replays
+(``krylov/graph_captures`` / ``krylov/graph_replays``, 0 for a version
+without graphs) and the captures' host seconds (the span
+``krylov/capture``); and, from one more run of each path in each version's
+first process under ``torch.profiler``, its busy share: the card's kernel
+time over the wall (this checkout's ``utils/cuda_timing.py::busy_share``,
+loaded from its file, whichever package runs).  The paths, as
+chip_smoke.py drives them:
 
 * ``bench``: the bench movie (13 frames of 256x256, blob width 20, sigma 3,
   v = (0.15, 0.1), x100 through float32), two-pass, alpha 1000 / 1000;
@@ -71,18 +78,33 @@ def _movie(n_frames, dim, counts=False):
     return (movie * 100.0).astype(np.float32)
 
 
+def _busy_share():
+    """This checkout's ``cuda_timing.busy_share``, loaded from its file, so
+    that a worker running another checkout's package has it too."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_timing.py")
+    spec = importlib.util.spec_from_file_location("_cuda_timing_here", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.busy_share
+
+
 def worker(paths, cli_pairs: int = 10, timed_phases: bool = True,
-           torch_stages: bool = False) -> None:
+           torch_stages: bool = False, busy: bool = False) -> None:
     """Runs ``paths`` with the package found first on the path; prints one
-    JSON object {path: {wall, phases, iterations, converged, pairs, counts}}
-    (phases empty without ``timed_phases``).  ``torch_stages``: every
-    multigrid hierarchy on the ``'torch'`` route."""
+    JSON object {path: {wall, phases, iterations, converged, pairs, counts,
+    syncs, busy}} (phases empty without ``timed_phases``; busy, the kernel
+    seconds over the wall of one more run under the profiler, null without
+    ``busy``).  ``torch_stages``: every multigrid hierarchy on the
+    ``'torch'`` route."""
     import numpy as np
     import torch
 
     from opticalflow_tpu_torch import SolverConfig
     from opticalflow_tpu_torch.flow import variational
     from opticalflow_tpu_torch.ops import cuda_kernels as ck
+    from opticalflow_tpu_torch.utils import observability
 
     dev = torch.device("cuda", 0)
     ck.load_library()
@@ -100,13 +122,14 @@ def worker(paths, cli_pairs: int = 10, timed_phases: bool = True,
             torch.cuda.synchronize()
             phases[name] += time.perf_counter() - t0
 
-    timer = phase if timed_phases else None
+    timers = {"phase": phase if timed_phases else None}  # none in the profiled run
 
     def movie_solve(movie, warm_start, solver):
         m = torch.from_numpy(movie).to(dev)
         u0 = m.new_zeros((3,) + tuple(m.shape[1:]))
         _, info = variational._solve_movie(m, u0, ALPHA, ALPHA, "compat", warm_start,
-                                           phase_timer=timer, **variational.solver_kwargs(solver))
+                                           phase_timer=timers["phase"],
+                                           **variational.solver_kwargs(solver))
         return info
 
     def sweep_solve(movie, solver):
@@ -122,7 +145,7 @@ def worker(paths, cli_pairs: int = 10, timed_phases: bool = True,
             n = alphas.shape[0]
             _, info = variational.solve_frame_pair(
                 m[:1].expand(n, *m.shape[1:]), m[1:].expand(n, *m.shape[1:]), u0,
-                alphas[:, 0], alphas[:, 1], dy_mode="compat", phase_timer=timer,
+                alphas[:, 0], alphas[:, 1], dy_mode="compat", phase_timer=timers["phase"],
                 **variational.solver_kwargs(solver))
             infos.append(info)
         return {k: torch.cat([i[k] for i in infos]) for k in ("iterations", "converged")}
@@ -141,23 +164,35 @@ def worker(paths, cli_pairs: int = 10, timed_phases: bool = True,
         counters = ("LAUNCHES", "CORE_LAUNCHES", "EXT_LAUNCHES", "DF_LAUNCHES", "MG_LAUNCHES",
                     "MGT_LAUNCHES")
         before = {c: getattr(ck, c, 0) for c in counters}
+        observability.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         info = runs[path]()
         its = info["iterations"].cpu().numpy()  # synchronised
         wall = time.perf_counter() - t0
+        counts = observability.counts()
+        capture = observability.span_statistics().get("krylov/capture", {"total": 0.0})
         out[path] = {"wall": wall, "phases": dict(phases), "iterations": its.tolist(),
                      "converged": int(np.asarray(info["converged"].cpu()).sum()),
                      "pairs": int(its.size),
-                     "counts": {c: getattr(ck, c, 0) - before[c] for c in counters}}
+                     "counts": {c: getattr(ck, c, 0) - before[c] for c in counters},
+                     "syncs": {k: counts.get(f"krylov/{k}", 0)
+                               for k in ("host_syncs", "graph_captures", "graph_replays")},
+                     "capture_s": capture["total"], "busy": None}
+        if busy:
+            timers["phase"] = None
+            _, busy_wall, kernel_s = _busy_share()(runs[path])
+            out[path]["busy"] = {"wall": busy_wall, "kernel_s": kernel_s}
+            timers["phase"] = phase if timed_phases else None
     print(json.dumps(out), flush=True)
 
 
-def run(tree: str, paths, cli_pairs: int, timed_phases: bool, torch_stages: bool = False) -> dict:
+def run(tree: str, paths, cli_pairs: int, timed_phases: bool, torch_stages: bool = False,
+        busy: bool = False) -> dict:
     """One worker process with ``tree``'s package first on the path."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
     flags = (["--cli-pairs", str(cli_pairs)] + ([] if timed_phases else ["--no-phase-timer"])
-             + (["--torch-stages"] if torch_stages else []))
+             + (["--torch-stages"] if torch_stages else []) + (["--busy"] if busy else []))
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), *flags, "--worker", *paths],
                           env=env, capture_output=True, text=True, check=True)
     return json.loads(proc.stdout.strip().splitlines()[-1])
@@ -173,10 +208,11 @@ def main(argv=None) -> int:
                         help="walls alone, no device sync between phases")
     parser.add_argument("--torch-stages", action="store_true",
                         help="also this checkout with the multigrid on its plain stages")
+    parser.add_argument("--busy", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--worker", nargs="+", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.worker:
-        worker(args.worker, args.cli_pairs, args.timed_phases, args.torch_stages)
+        worker(args.worker, args.cli_pairs, args.timed_phases, args.torch_stages, args.busy)
         return 0
     this = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     trees = {"other": args.other_tree, "this": this, "stages": this}
@@ -188,10 +224,10 @@ def main(argv=None) -> int:
     runs = {name: [] for name in names}
     for name in (names + names[::-1]) if quick else ():
         runs[name].append(run(trees[name], quick, args.cli_pairs, args.timed_phases,
-                              name == "stages"))
+                              name == "stages", busy=not runs[name]))
     for name in names if sweep else ():
         runs[name].append(run(trees[name], sweep, args.cli_pairs, args.timed_phases,
-                              name == "stages"))
+                              name == "stages", busy=True))
     for path in quick + sweep:
         line = []
         for name in names:
@@ -200,11 +236,15 @@ def main(argv=None) -> int:
             med = rs[walls.index(statistics.median_low(walls))]
             split = ", ".join(f"{k} {v:.3f}" for k, v in med["phases"].items())
             its = med["iterations"] if med["pairs"] <= 12 else f"summed {sum(med['iterations'])}"
+            busy = next(r["busy"] for r in rs if r["busy"] is not None)
             line.append(f"{name}: wall s {[round(w, 3) for w in walls]}, median run {split}; "
                         f"refinement {med['phases'].get('refinement', 0.0) / med['wall']:.3f} of "
                         f"the wall; iterations {its}, ms per iteration "
                         f"{1e3 * med['wall'] / max(sum(med['iterations']), 1):.3f}, converged "
-                        f"{med['converged']}/{med['pairs']}, launches {med['counts']}")
+                        f"{med['converged']}/{med['pairs']}, launches {med['counts']}, "
+                        f"{med['syncs']}, captures' host s {med['capture_s']:.3f}; busy "
+                        f"{busy['kernel_s'] / busy['wall']:.3f} of the wall under the profiler "
+                        f"({busy['kernel_s']:.3f} s of kernels in {busy['wall']:.3f} s)")
         print(f"{path}: " + " | ".join(line) + f"  [{card}]", flush=True)
     return 0
 

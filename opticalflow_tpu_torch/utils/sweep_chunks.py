@@ -21,7 +21,15 @@ hierarchy, and what one V-cycle launches: B1, B5 and B6 and the torch
 operations it dispatches), the refinement's df32 operator and residual
 as the solve runs them (kernel B4) and their plain versions (the torch ops
 the refinement ran before B4), and the wall time of 50 main BiCGStab
-iterations.  ``--costs --chunks`` (no chunk size) prints the costs alone.
+iterations after one untimed (set-up and the step's CUDA graph capture
+included), with the Krylov loop's exit read every ``krylov.CHUNK`` steps
+and read after every step (``CHUNK = 1``): the host syncs of each, the
+capture's host seconds,
+and what one read costs, the difference of the two walls over the
+difference of their syncs; then the card's busy share of the first (its
+kernel time over the wall of one more run under ``torch.profiler``,
+``cuda_timing.busy_share``).  ``--costs --chunks`` (no chunk size) prints
+the costs alone.
 """
 
 from __future__ import annotations
@@ -143,10 +151,11 @@ def op_costs(movie: np.ndarray, card: str, batches=(300, 26)):
 
     from opticalflow_tpu_torch.flow import variational
     from opticalflow_tpu_torch.ops import elop
-    from opticalflow_tpu_torch.solve import multigrid
-    from opticalflow_tpu_torch.utils.cuda_timing import call_ms
+    from opticalflow_tpu_torch.solve import krylov, multigrid
+    from opticalflow_tpu_torch.utils.cuda_timing import busy_share, call_ms
 
     dev = torch.device("cuda")
+    chunk = krylov.CHUNK
     for n in batches:
         v_cycle_costs(movie, n, card)
         prev, cur, a_s, a_r, scale, pair, matvec, hierarchy = _sweep_system(movie, n)
@@ -161,18 +170,36 @@ def op_costs(movie: np.ndarray, card: str, batches=(300, 26)):
                  "df32 operator plain": call_ms(lambda: ck.el_matvec_df32_ref(ops, u), 5),
                  "df32 residual (B4)": call_ms(lambda: ck.el_residual_df32(ops, u, u_lo), 20),
                  "df32 residual plain": call_ms(lambda: ck.el_residual_df32_ref(ops, u, u_lo), 5)}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        # 50 main iterations: a tolerance no pair reaches
-        variational.solve_frame_pair(prev, cur, torch.zeros(3, 128, 128, device=dev), a_s, a_r,
-                                     rtol=1e-30, tol_floor=0.0, max_iterations=50,
-                                     refinement_restarts=0)
-        torch.cuda.synchronize()
-        per_iteration = (time.perf_counter() - t0) / 50 * 1e3
+
+        def main_solve():  # 50 main iterations: a tolerance no pair reaches
+            return variational.solve_frame_pair(
+                prev, cur, torch.zeros(3, 128, 128, device=dev), a_s, a_r, rtol=1e-30,
+                tol_floor=0.0, max_iterations=50, refinement_restarts=0)
+
+        main_solve()  # warm-up: the first capture at this shape allocates its pool
+        runs = {}
+        for k in (chunk, 1):
+            krylov.CHUNK = k
+            observability.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            main_solve()
+            torch.cuda.synchronize()
+            capture = observability.span_statistics().get("krylov/capture", {"total": 0.0})
+            runs[k] = ((time.perf_counter() - t0) / 50 * 1e3,
+                       observability.counts().get("krylov/host_syncs", 0), capture["total"])
+        krylov.CHUNK = chunk
+        _, wall, kernel_s = busy_share(main_solve)
+        (ms, syncs, capture_s), (ms_1, syncs_1, _) = runs[chunk], runs[1]
+        read_ms = (ms_1 - ms) * 50 / max(syncs_1 - syncs, 1)
         print(f"{n} cells of 128x128: ms per call " + ", ".join(
             f"{k} {v:.3f}" for k, v in costs.items())
-            + f"; main BiCGStab iteration {per_iteration:.1f} ms (50 iterations, set-up "
-              f"included)  [{card}]", flush=True)
+            + f"; main BiCGStab iteration {ms:.3f} ms (50 iterations, set-up included; "
+              f"exit read every {chunk} steps: {syncs} host syncs, the capture "
+              f"{capture_s * 1e3:.1f} ms of host time), {ms_1:.3f} ms read every step "
+              f"({syncs_1} syncs): a read costs {read_ms:.3f} ms; busy "
+              f"{kernel_s / wall:.3f} of the wall under the profiler ({kernel_s * 1e3:.1f} ms "
+              f"of kernels in {wall * 1e3:.1f} ms)  [{card}]", flush=True)
 
 
 def main():

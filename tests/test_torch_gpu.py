@@ -938,3 +938,173 @@ def test_solve_on_the_card_runs_the_v_cycle_on_b5_and_b6(matvec):
     launched = ck.MG_LAUNCHES > counts[0] and ck.MGT_LAUNCHES > counts[1]
     assert launched == (matvec != "xla")
     assert (ck.MG_PLAIN_CALLS, ck.MGT_PLAIN_CALLS) == counts[2:]
+
+
+# The Krylov loops on the card (solve.krylov): each step replayed from a
+# CUDA graph captured once per solve, the exit read once per chunk.
+
+
+def _card_system(dev, m=46, n=46):
+    """Three EL systems (the normalised alphas of ``ALPHAS``) on the card
+    with the default solver's operators: kernel B1's matvec and the
+    multigrid hierarchy on kernels B5 and B6."""
+    import functools
+
+    from opticalflow_tpu_torch.flow import variational
+    from opticalflow_tpu_torch.solve import multigrid
+
+    frames = torch.from_numpy(_frames(m, n, len(ALPHAS) + 1)).to(dev)
+    frames = frames / frames.abs().max()
+    prev, cur = frames[:-1].contiguous(), frames[1:].contiguous()
+    a_s = torch.tensor([a for a, _ in ALPHAS], device=dev)
+    a_r = torch.tensor([a for _, a in ALPHAS], device=dev)
+    pair = elop.compute_frame_pair_data(prev, cur, a_s, a_r, "compat")
+    matvec = variational._make_matvec("auto", prev, a_s, a_r, "compat", pair.coeffs)
+    h = multigrid.setup(matvec, elop.diag_blocks(pair.coeffs), m, n, torch.float32,
+                        route="kernels")
+    return matvec, pair.rhs[:, :, 1:-1, 1:-1].contiguous(), functools.partial(multigrid.v_cycle, h)
+
+
+def _laplacian_system(dev):
+    """Symmetric positive definite systems for CG: (4 + s) u minus the four
+    neighbours (zero outside), a shift per pair, and its Jacobi
+    preconditioner."""
+    import torch.nn.functional as F
+
+    s = torch.tensor([0.05, 0.5, 0.005], device=dev)[:, None, None, None]
+
+    def matvec(u):
+        p = F.pad(u, (1, 1, 1, 1))
+        return (4.0 + s) * u - (p[..., :-2, 1:-1] + p[..., 2:, 1:-1] + p[..., 1:-1, :-2]
+                                + p[..., 1:-1, 2:])
+
+    b = torch.randn(3, 3, 40, 50, device=dev, generator=torch.Generator(dev).manual_seed(3))
+    return matvec, b, lambda r: r / (4.0 + s)
+
+
+def _assert_same_result(res, ref):
+    from opticalflow_tpu_torch.solve import krylov
+
+    for field in krylov.KrylovResult._fields:
+        assert torch.equal(getattr(res, field), getattr(ref, field)), field
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["bicgstab", "cg"])
+def test_graphed_krylov_solve_equals_its_uncaptured_steps(method):
+    """The solve replayed from its CUDA graph and the same steps run on the
+    card without capture (``krylov._uncaptured``): the same bits, and the
+    same kernel launches counted (a capture's counts added per replay)."""
+    from opticalflow_tpu_torch.solve import krylov
+    from opticalflow_tpu_torch.utils import observability
+
+    dev = _cuda()
+    if method == "bicgstab":
+        matvec, b, precond = _card_system(dev)
+    else:
+        matvec, b, precond = _laplacian_system(dev)
+    solve = getattr(krylov, method)
+    kw = dict(precond=precond, rtol=1e-6, max_iterations=300)
+    observability.reset()
+    launches = ck.LAUNCHES, ck.MG_LAUNCHES, ck.MGT_LAUNCHES
+    graphed = solve(matvec, b, **kw)
+    graphed_launches = (ck.LAUNCHES - launches[0], ck.MG_LAUNCHES - launches[1],
+                        ck.MGT_LAUNCHES - launches[2])
+    counts = observability.counts()
+    assert counts["krylov/graph_captures"] == 1 and counts["krylov/graph_replays"] > 0
+    launches = ck.LAUNCHES, ck.MG_LAUNCHES, ck.MGT_LAUNCHES
+    with krylov._uncaptured():
+        eager = solve(matvec, b, **kw)
+    assert (ck.LAUNCHES - launches[0], ck.MG_LAUNCHES - launches[1],
+            ck.MGT_LAUNCHES - launches[2]) == graphed_launches
+    assert observability.counts()["krylov/graph_captures"] == 1  # none more
+    _assert_same_result(graphed, eager)
+    assert (graphed.iterations > 1).all()
+
+
+@pytest.mark.gpu
+def test_launch_counters_are_exact_under_replay():
+    """A V-cycle of the sweep's shape (126x126, 5 levels, Jacobi, 2 sweeps)
+    captured as a Krylov step and replayed: 4 B1, 10 B5 and 8 B6 launches
+    counted per replay (22), no plain call, the eager V-cycle's bits."""
+    from opticalflow_tpu_torch.solve import krylov
+
+    dev = _cuda()
+    _, b, precond = _card_system(dev, 126, 126)
+    out = torch.empty_like(b)
+    step = krylov._Step(lambda: out.copy_(precond(b)), dev)
+    step()  # runs once, then captures
+    assert step.graph is not None and step.counts == {"LAUNCHES": 4, "MG_LAUNCHES": 10,
+                                                      "MGT_LAUNCHES": 8}
+    before = ck.LAUNCHES, ck.MG_LAUNCHES, ck.MGT_LAUNCHES, ck.MG_PLAIN_CALLS, ck.MGT_PLAIN_CALLS
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    after = ck.LAUNCHES, ck.MG_LAUNCHES, ck.MGT_LAUNCHES, ck.MG_PLAIN_CALLS, ck.MGT_PLAIN_CALLS
+    assert tuple(a - c for a, c in zip(after, before)) == (12, 30, 24, 0, 0)
+    assert torch.equal(out, precond(b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gpus", [1, 2])
+def test_threads_capture_thread_locally(gpus):
+    """Two threads solving at once, each capturing its graph on its own
+    stream (one card, or a GPU each where the machine has two): the bits of
+    the same solves one after another."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from opticalflow_tpu_torch.solve import krylov
+
+    devices = [_cuda()] * 2 if gpus == 1 else _two_gpus()
+    systems = [_card_system(d) for d in devices]
+
+    def solve(i):
+        with torch.cuda.device(devices[i]):
+            matvec, b, precond = systems[i]
+            return krylov.bicgstab(matvec, b, precond=precond, rtol=1e-6)
+
+    serial = [solve(i) for i in range(2)]
+    with ThreadPoolExecutor(2) as pool:
+        threaded = list(pool.map(solve, range(2)))
+    for res, ref in zip(threaded, serial):
+        _assert_same_result(res, ref)
+
+
+@pytest.mark.gpu
+def test_refinement_subsets_each_capture_and_replay(monkeypatch):
+    """A batch of four pairs whose refinement stops apart: the main solve
+    and every correction solve, on the operators sliced to its active
+    pairs, capture one graph and replay it; the whole solve equals the same
+    solve with its steps uncaptured, bit for bit."""
+    from opticalflow_tpu_torch.flow import variational
+    from opticalflow_tpu_torch.solve import krylov
+    from opticalflow_tpu_torch.utils import observability
+
+    dev = _cuda()
+    movie, _ = make_translating_blob_movie(n_frames=2, dimension=40, width=20.0, sigma=3.0,
+                                           v_x=0.15, v_y=0.1)
+    movie = torch.from_numpy((movie * 100.0).astype(np.float32)).to(dev)
+    prev, cur = movie[:1].expand(4, 40, 40), movie[1:].expand(4, 40, 40)
+    a_s = torch.tensor([100.0, 300.0, 3000.0, 1e5], device=dev)
+    a_r = torch.tensor([300.0, 1000.0, 100.0, 1e5], device=dev)
+    calls, bicgstab = [], krylov.bicgstab
+
+    def counted(matvec, b, **kw):
+        before = observability.counts()
+        res = bicgstab(matvec, b, **kw)
+        after = observability.counts()
+        calls.append((b.shape[0], *(after.get(k, 0) - before.get(k, 0)
+                                    for k in ("krylov/graph_captures", "krylov/graph_replays"))))
+        return res
+
+    monkeypatch.setattr(krylov, "bicgstab", counted)
+    u, info = variational.solve_frame_pair(prev, cur, torch.zeros(3, 40, 40, device=dev), a_s,
+                                           a_r)
+    assert len(calls) >= 2 and min(batch for batch, _, _ in calls) < 4  # sliced subsets
+    assert all(captures == 1 and replays > 0 for _, captures, replays in calls), calls
+    with krylov._uncaptured():
+        u_e, info_e = variational.solve_frame_pair(prev, cur, torch.zeros(3, 40, 40, device=dev),
+                                                   a_s, a_r)
+    assert torch.equal(u, u_e) and info["converged"].all()
+    for key in info:
+        assert torch.equal(info[key], info_e[key]), key
