@@ -155,8 +155,16 @@ def _norms(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(x * x, dim=(1, 2, 3)))
 
 
+@contextlib.contextmanager
 def _phase(phase_timer, name: str):
-    return contextlib.nullcontext() if phase_timer is None else phase_timer(name)
+    """The span ``pair/<name>`` around a phase of :func:`solve_frame_pair`,
+    with ``phase_timer(name)`` inside it where a timer is given."""
+    with observability.span(f"pair/{name}"):
+        if phase_timer is None:
+            yield
+        else:
+            with phase_timer(name):
+                yield
 
 
 @krylov.full_f32_precision()
@@ -189,9 +197,12 @@ def solve_frame_pair(
     converged, the three functionals).  Each pair is normalised by its own
     intensity scale s (frames / s, alpha_s / s^2), which keeps the
     coefficients O(1); gamma is solved in units of I/s and scaled back.
+    The call's five phases are the spans ``pair/pair_data``,
+    ``pair/mg_setup``, ``pair/krylov_main``, ``pair/refinement`` and
+    ``pair/finish`` (utils.observability), which add no sync.
     ``phase_timer``: ``None``, or a callable that takes a phase name
     (``pair_data``, ``mg_setup``, ``krylov_main``, ``refinement``) and
-    returns a context manager wrapped around that phase
+    returns a context manager wrapped around that phase, inside its span
     (:func:`profile_solve_phases`).  ``matvec_factory``: ``None``, or a
     callable ``(frames, alpha_s, alpha_r, dy_mode) -> matvec`` that takes
     the normalised (B, Ni, Nj) frames and the (B,) alphas and returns the
@@ -206,8 +217,9 @@ def solve_frame_pair(
         scale = torch.clamp(previous_frame.abs().flatten(1).amax(dim=1), min=1e-30)  # (B,)
         s3 = scale[:, None, None]
         raw_prev, raw_cur = previous_frame, current_frame
-        raw_speed_alpha = elop.per_pair(speed_alpha, previous_frame)
-        a_r = elop.per_pair(remodelling_alpha, previous_frame)
+        with observability.host_wait():  # a Python scalar is copied to the card
+            raw_speed_alpha = elop.per_pair(speed_alpha, previous_frame)
+            a_r = elop.per_pair(remodelling_alpha, previous_frame)
         prev = previous_frame / s3
         cur = current_frame / s3
         a_s = raw_speed_alpha / scale**2
@@ -304,11 +316,15 @@ def solve_frame_pair(
                 active = ((step < refinement_restarts) & (r_norm > exit_tol)
                           & (r_norm < 0.999 * r_prev))
                 observability.add_count("krylov/host_syncs")
-                pairs = tuple(torch.nonzero(active.cpu()).flatten().tolist())
+                observability.add_count("refinement/steps")
+                with observability.host_wait():
+                    pairs = tuple(torch.nonzero(active.cpu()).flatten().tolist())
                 if not pairs:
                     break
-                idx = torch.tensor(pairs, device=x_hi.device)
+                with observability.host_wait():  # a copy from pageable host memory
+                    idx = torch.tensor(pairs, device=x_hi.device)
                 if pairs != subset[0]:
+                    observability.add_count("refinement/retakes")
                     subset = (pairs, _take(ops, idx), precond_of(idx))
                 _, ops_a, precond_a = subset
                 res_c = solve(lambda u: cuda_kernels.el_matvec_df32(ops_a, u.contiguous()),
@@ -336,25 +352,29 @@ def solve_frame_pair(
         converged = res.converged
         x_int = res.x
 
-    # Embed + mirror-BC fix-up (corners take the single mirror value).
-    u = elop.embed_interior(x_int)
-    l1, speed_f, rem_f = _functionals(u, pair, a_s, a_r, dy_mode)
-    s2 = scale**2
-    u = torch.cat([u[:, :2], u[:, 2:] * s3[:, None]], dim=1)
-    info = {
-        "iterations": iterations,
-        "residual_norm": residual_norm,
-        "converged": converged,
-        "L1_functional": l1 * s2,
-        "speed_functional": speed_f * s2,
-        "remodelling_functional": rem_f * s2,
-    }
+    with observability.span("pair/finish"):
+        # Embed + mirror-BC fix-up (corners take the single mirror value).
+        u = elop.embed_interior(x_int)
+        l1, speed_f, rem_f = _functionals(u, pair, a_s, a_r, dy_mode)
+        s2 = scale**2
+        u = torch.cat([u[:, :2], u[:, 2:] * s3[:, None]], dim=1)
+        info = {
+            "iterations": iterations,
+            "residual_norm": residual_norm,
+            "converged": converged,
+            "L1_functional": l1 * s2,
+            "speed_functional": speed_f * s2,
+            "remodelling_functional": rem_f * s2,
+        }
     return u, info
 
 
 def _solve_movie(movie, u_init, speed_alpha, remodelling_alpha, dy_mode, warm_start, **solver_kw):
     """Solve every frame pair of ``movie`` (T, Ni, Nj) from ``u_init`` (3,
-    Ni, Nj); returns (P, 3, Ni, Nj) solutions and a dict of (P,) infos."""
+    Ni, Nj); returns (P, 3, Ni, Nj) solutions and a dict of (P,) infos.
+    The sequential loop records each pair's host wall, from the previous
+    pair's end (the loop's start for the first), in the series
+    ``variational/pair_s``."""
     prev_frames, cur_frames = movie[:-1], movie[1:]
     pair_solver = functools.partial(
         solve_frame_pair, speed_alpha=speed_alpha, remodelling_alpha=remodelling_alpha,
@@ -362,11 +382,15 @@ def _solve_movie(movie, u_init, speed_alpha, remodelling_alpha, dy_mode, warm_st
     )
     if warm_start == "sequential":
         us, infos, carry = [], [], u_init
+        last = time.perf_counter()
         for k in range(prev_frames.shape[0]):
             u, info = pair_solver(prev_frames[k : k + 1], cur_frames[k : k + 1], carry)
             carry = u[0]
             us.append(u)
             infos.append(info)
+            now = time.perf_counter()
+            observability.record_value("variational/pair_s", now - last)
+            last = now
     elif warm_start == "cold":
         u, info = pair_solver(prev_frames, cur_frames, u_init)
         us, infos = [u], [info]
@@ -448,7 +472,8 @@ def variational_optical_flow(
     solver = solver or SolverConfig()
     dtype = dtype or torch.float32
     device = resolve_device(device)
-    movie = torch.as_tensor(movie).to(device=device, dtype=dtype)
+    with observability.host_wait():  # a host movie is copied from pageable memory
+        movie = torch.as_tensor(movie).to(device=device, dtype=dtype)
     if smoothing_sigma is not None:
         movie_to_analyse = blur_movie(movie, smoothing_sigma=smoothing_sigma)
     else:
@@ -473,8 +498,12 @@ def variational_optical_flow(
                 movie_to_analyse, u_init, speed_alpha, remodelling_alpha, dy_mode, warm_start,
                 **solver_kwargs(solver),
             )
-            all_u = all_u.cpu().numpy()
-            infos = {key: value.cpu().numpy() for key, value in infos.items()}
+        with observability.span("variational/to_host"):  # every copy of the call to the host
+            if not use_direct_solver:
+                all_u = all_u.cpu().numpy()
+                infos = {key: value.cpu().numpy() for key, value in infos.items()}
+            original_data = movie.cpu().numpy()
+            blurred_data = movie_to_analyse.cpu().numpy()
 
     scale = delta_x / delta_t
     all_v_x = all_u[:, 0] * scale
@@ -492,8 +521,8 @@ def variational_optical_flow(
         v_y=all_v_y,
         speed=all_speed,
         remodelling=all_remodelling,
-        original_data=movie.cpu().numpy(),
-        blurred_data=movie_to_analyse.cpu().numpy(),
+        original_data=original_data,
+        blurred_data=blurred_data,
         delta_x=delta_x,
         delta_t=delta_t,
         # the reference stores only the final pair's flag

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from opticalflow_tpu_torch.core import stencils
 from opticalflow_tpu_torch.ops import df32
+from opticalflow_tpu_torch.utils import observability
 
 
 class ELCoefficients(NamedTuple):
@@ -413,7 +414,9 @@ def compute_frame_pair_data_df(
     a_s = df32.df_div(df32.df_div_f(per_pair(speed_alpha_raw, previous_frame_raw)[..., None, None], s), s)
     a_r = df32.df_from(per_pair(remodelling_alpha, previous_frame_raw)[..., None, None])
     four_a_s = df32.df_scale_pow2(a_s, 4.0)
-    gD = df32.df_add_pf(df32.df_scale_pow2(a_r, -4.0), torch.tensor(-1.0, dtype=s.dtype, device=s.device))
+    with observability.host_wait():  # a copy from pageable host memory
+        minus_one = torch.tensor(-1.0, dtype=s.dtype, device=s.device)
+    gD = df32.df_add_pf(df32.df_scale_pow2(a_r, -4.0), minus_one)
 
     diag_x = df32.df_sub(df32.df_mul(I, df32.df_sub(dIdxx, two_I)), four_a_s)
     diag_y = df32.df_sub(df32.df_mul(I, df32.df_sub(dIdyy, two_I)), four_a_s)

@@ -16,9 +16,9 @@ fixed state buffers, and on CUDA tensors it is captured once per call into
 a CUDA graph and replayed (:class:`_Step`): the kernels and torch ops of a
 step are launched as one graph, with no host work between them.  The host
 reads the loop's exit from the device once per chunk of ``CHUNK`` steps;
-every such read is counted as ``krylov/host_syncs``, every capture as
-``krylov/graph_captures`` (its host time, the capture alone, as the span
-``krylov/capture``) and every replay as ``krylov/graph_replays``
+every such read is counted as ``krylov/host_syncs`` and timed as the span
+``solve/host_wait``, every capture is counted as ``krylov/graph_captures``
+and its host time, the capture alone, is the span ``krylov/capture``
 (utils.observability).  Steps past a pair's exit inside a chunk leave its
 state as it was, so the results are those of a read after every step, bit
 for bit, whatever ``CHUNK`` is.  On the CPU the same steps run uncaptured.
@@ -139,7 +139,8 @@ def _capture_context(device: torch.device) -> list:
 def _any(flags: torch.Tensor) -> bool:
     """Whether any of the (B,) device ``flags`` is set: one host sync."""
     observability.add_count("krylov/host_syncs")
-    return bool(flags.any())
+    with observability.host_wait():
+        return bool(flags.any())
 
 
 class _Step:
@@ -169,7 +170,6 @@ class _Step:
                 return
             self.graph.replay()
         cuda_kernels.add_counts(self.counts)
-        observability.add_count("krylov/graph_replays")
 
     def _run_and_capture(self) -> None:
         current = torch.cuda.current_stream(self.device)
@@ -558,7 +558,8 @@ def fgmres(
             disagree = outer.clone()
         after, outer_next = restarted(x_new, res_new)
         observability.add_count("krylov/host_syncs")
-        any_disagree, going = torch.stack([disagree.any(), outer_next.any()]).tolist()
+        with observability.host_wait():
+            any_disagree, going = torch.stack([disagree.any(), outer_next.any()]).tolist()
         if any_disagree:
             # evaluated for the whole batch, taken only where a pair disagrees
             for xc, rc in (solution_for((j + 1) // 2), solution_for((j + 3) // 4)):

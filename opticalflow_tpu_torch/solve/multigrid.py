@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from opticalflow_tpu_torch.ops import cuda_kernels
+from opticalflow_tpu_torch.utils import observability
 
 
 # ---------------------------------------------------------------------------
@@ -389,7 +390,8 @@ def setup(
     n_unk = 3 * m * n
     eye = torch.eye(n_unk, dtype=dtype, device=device).reshape(n_unk, 3, m, n)
     cols = matvec(eye.expand(B, n_unk, 3, m, n).contiguous()).reshape(B, n_unk, n_unk)
-    lu, piv = torch.linalg.lu_factor(cols.transpose(-1, -2))
+    with observability.host_wait():  # lu_factor reads its error flags on the host
+        lu, piv = torch.linalg.lu_factor(cols.transpose(-1, -2))
     return MGHierarchy(levels=tuple(levels), coarse_solve=functools.partial(_lu_solve, lu, piv),
                        coarse_lu=(lu, piv), route=route)
 

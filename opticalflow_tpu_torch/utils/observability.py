@@ -5,13 +5,39 @@ Counterpart of ``opticalflow_tpu.utils.observability``: the logger,
 registry), ``format_elapsed_time`` (the reference's minutes / seconds /
 milliseconds), ``reset_spans`` and ``profile_trace``, here a
 ``torch.profiler`` trace in place of ``jax.profiler``'s.  A span measures
-host time: around CUDA work it measures the enqueue unless the block ends
-in a synchronisation (the variational solve's span does, since it copies
-its results to the host).  Counters count host events: the Krylov loops'
-device-to-host reads of their exit (``krylov/host_syncs``, every read from
-the card), their CUDA graph captures and replays
-(``krylov/graph_captures``, ``krylov/graph_replays``; each capture's host
-time is the span ``krylov/capture``), see solve.krylov.
+host time: around CUDA work it measures the enqueue, and the host's waits
+for the card inside it.  While a ``torch.profiler`` profile runs, a span
+also opens a ``record_function`` range of its name, so the program's spans
+sit on the device trace's clock, nested as in the code; otherwise it costs
+two clock reads and an append under the lock.
+
+What the port records, and where (the benchmark's readers in
+``portbench/metrics/`` name what reads each):
+
+* spans ``pair/pair_data``, ``pair/mg_setup``, ``pair/krylov_main``,
+  ``pair/refinement``, ``pair/finish``: the five phases of each
+  ``flow.variational.solve_frame_pair`` call, which cover it;
+  ``variational/solve`` (the movie's solve) and within it
+  ``variational/to_host`` (every device-to-host copy of a call);
+* span ``solve/host_wait`` (:func:`host_wait`): every synchronising call on
+  a call's path outside ``variational/to_host``, the host waiting for the
+  card: the Krylov loops' and the refinement's reads, the refinement's
+  index copy, the multigrid LU's error check, the copies of scalar alphas
+  and of the movie to the card;
+* span ``krylov/capture``: each CUDA graph capture's host time;
+  counters ``krylov/host_syncs`` (the Krylov loops' and the refinement
+  loop's reads of the card) and ``krylov/graph_captures``, see
+  solve.krylov;
+* counters ``refinement/steps`` (the refinement loop's reads of its active
+  set) and ``refinement/retakes`` (its re-slices of the operators and
+  hierarchy to a smaller active set);
+* series ``variational/pair_s`` (each pair's host wall in the sequential
+  loop) and ``sweep/chunk_max_iterations``, span ``sweep/chunk``
+  (analysis.sweeps);
+* the command line's and the workflows' spans (``drivers/load``,
+  ``drivers/save``, ``drivers/plot``; ``flow:<method>``, ``viz:*`` and
+  others in analysis.workflows).
+
 Spans, counters and series are recorded under a lock, so several threads
 may record at once (the sharded solve's workers): a span keeps its own
 start time, so spans opened in different threads need no common nesting.
@@ -25,7 +51,7 @@ import os
 import threading
 import time
 from collections import defaultdict
-from typing import Dict, Iterator, List, Tuple
+from typing import ContextManager, Dict, Iterator, List, Tuple
 
 import torch
 
@@ -89,16 +115,27 @@ def record_span(name: str, seconds: float) -> None:
 
 
 @contextlib.contextmanager
-def span(name: str, log: bool = False) -> Iterator[None]:
-    """Record a named wall-clock span into the process registry."""
-    start = time.perf_counter()
-    try:
-        yield
-    finally:
-        elapsed = time.perf_counter() - start
-        record_span(name, elapsed)
-        if log:
-            logger.info("%s: %.3fs", name, elapsed)
+def span(name: str) -> Iterator[None]:
+    """Record a named wall-clock span into the process registry; while a
+    ``torch.profiler`` profile runs, inside a ``record_function`` range of
+    the same name."""
+    profiled = torch.autograd.profiler._is_profiler_enabled  # a flag the profiler keeps for this
+    with torch.profiler.record_function(name) if profiled else contextlib.nullcontext():
+        start = time.perf_counter()
+        try:
+            yield
+        finally:
+            record_span(name, time.perf_counter() - start)
+
+
+HOST_WAIT = "solve/host_wait"
+
+
+def host_wait() -> ContextManager[None]:
+    """The span ``solve/host_wait``, around one call that synchronises with
+    the card: a read of a device value, or a copy between pageable host
+    memory and the card.  Its total is the host's wall spent waiting."""
+    return span(HOST_WAIT)
 
 
 def span_statistics() -> Dict[str, Dict[str, float]]:

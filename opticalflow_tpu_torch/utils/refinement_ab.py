@@ -12,9 +12,9 @@ then this.  Every solve runs with a phase timer (``solve_frame_pair``'s
 so each path gives its wall time (host clock, synchronised), the seconds
 of each phase summed over its solves, and the df32 refinement's share of
 the wall; its host syncs (``krylov/host_syncs``: every read of the card
-by the Krylov loops and the refinement), CUDA graph captures and replays
-(``krylov/graph_captures`` / ``krylov/graph_replays``, 0 for a version
-without graphs) and the captures' host seconds (the span
+by the Krylov loops and the refinement), CUDA graph captures
+(``krylov/graph_captures``, 0 for a version without graphs) and the
+captures' host seconds (the span
 ``krylov/capture``); and, from one more run of each path in each version's
 first process under ``torch.profiler``, its busy share: the card's kernel
 time over the wall (this checkout's ``utils/cuda_timing.py::busy_share``,
@@ -177,7 +177,7 @@ def worker(paths, cli_pairs: int = 10, timed_phases: bool = True,
                      "pairs": int(its.size),
                      "counts": {c: getattr(ck, c, 0) - before[c] for c in counters},
                      "syncs": {k: counts.get(f"krylov/{k}", 0)
-                               for k in ("host_syncs", "graph_captures", "graph_replays")},
+                               for k in ("host_syncs", "graph_captures")},
                      "capture_s": capture["total"], "busy": None}
         if busy:
             timers["phase"] = None
