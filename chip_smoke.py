@@ -41,7 +41,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    the kernels and through the plain stages, with what each launches (22
    kernels on the kernels, checked), then captured as a Krylov step is
    into a CUDA graph and replayed: 22 launches counted a replay, no plain
-   call, the eager V-cycle's bits;
+   call, the eager V-cycle's bits; then FGMRES's Gram-Schmidt and update,
+   kernel B7, against their plain versions at the two-pass cell's 1 and
+   49 pairs of 3 x 510x510 (columns 0, 15 and 31 of restart 32), each
+   timed warm and cold beside its bound, its plain version and the four
+   float64 ``torch.bmm`` products the port ran before (``library_ms``);
 4. the 256x256 path once warm and once timed: ``variational_optical_flow``
    on the bench movie (13 frames of 256x256, 12 pairs, two-pass warm
    start, alpha_s = alpha_r = 1000), with every kernel's counters set to 0
@@ -382,6 +386,8 @@ KERNELS = {
                   "opticalflow_tpu/solve/multigrid.py:247"),
     "mg_transfer": ("B6", "opticalflow_tpu_torch/csrc/mg_transfer.cu",
                     "opticalflow_tpu/solve/multigrid.py:77"),
+    "gram_schmidt": ("B7", "opticalflow_tpu_torch/csrc/krylov_gs.cu",
+                     "opticalflow_tpu/solve/krylov.py:374"),
 }
 
 
@@ -804,6 +810,104 @@ def check_mg_kernels(dev, card, entries):
     v_cycle_replays(n_sweep, card)
 
 
+# B7's shapes: the two-pass cell's N = 3 x 510^2 at one pair and at its 49,
+# restart 32, every pair at column j
+GS_N, GS_PAIRS, GS_COLUMNS, GS_RESTART = 3 * 510 * 510, (1, 49), (0, 15, 31), 32
+
+
+def gs_bytes(B, N, rows, column=True):
+    """(each input byte read once and the output written once, the bytes B7
+    moves): a column reads ``rows`` rows of V and w and writes w2, in three
+    passes over the rows, w twice and w1 once, w1 and w2 written; an update
+    reads ``rows`` rows of Z and x and writes its sum.  Float32 storage."""
+    if column:
+        return 4 * B * N * (rows + 2), 4 * B * N * (3 * rows + 5)
+    return (4 * B * N * (rows + 2),) * 2
+
+
+def check_gs_kernel(dev, card, entry):
+    """Phase 3's B7 (FGMRES's Gram-Schmidt and update) at the two-pass
+    cell's shapes, float32 storage and float64 sums: the column against its
+    plain version (max |kernel - plain| over |w|: a float32 rounding of
+    the projections at most) at 1 and 49 pairs and columns 0, 15 and 31,
+    each timed warm and cold beside the bound (each input byte once:
+    ``bound_ms``; the three passes' bytes printed beside it), the plain
+    version, and the four ``torch.bmm`` products on V held in float64 over
+    all 33 rows that the port ran before (``library_ms``, the port calls no
+    bmm there now); the update at 1 and 49 pairs and 31 columns, with its
+    one bmm.  The 49 pairs at column 31 fill B7's own keys."""
+    from opticalflow_tpu_torch.ops import cuda_kernels as ck
+    from opticalflow_tpu_torch.utils.cuda_timing import HBM_BYTES_PER_S, device_ms
+
+    acc, R, N = torch.float64, GS_RESTART + 1, GS_N
+    for B in GS_PAIRS:
+        gen = torch.Generator(dev).manual_seed(B)
+        V = torch.randn(B, R, N, device=dev, generator=gen) / N**0.5
+        w = torch.randn(B, N, device=dev, generator=gen)
+        act = torch.ones(B, dtype=torch.bool, device=dev)
+        V64 = V.double()
+
+        def library():  # fgmres before: V in float64, every row, four products
+            h1 = torch.bmm(V64, w.to(acc)[:, :, None])
+            w1 = w - torch.bmm(V64.transpose(1, 2), h1)[..., 0].float()
+            h2 = torch.bmm(V64, w1.to(acc)[:, :, None])
+            return w1 - torch.bmm(V64.transpose(1, 2), h2)[..., 0].float()
+
+        lib_ms = device_ms(library, launches=10)
+        for col in GS_COLUMNS:
+            j = torch.full((B,), col, dtype=torch.int64, device=dev)
+            Vj = V.clone()
+            Vj[:, col + 1:] = 0  # a cycle's rows past j
+            got = ck.gram_schmidt(Vj, w, j, act, acc)
+            ref = ck.gram_schmidt_ref(Vj, w, j, act, acc)
+            torch.cuda.synchronize()
+            err = (got[0] - ref[0]).abs().max().item() / ref[0].abs().max().item()
+            h_err = (got[1] - ref[1]).abs().max().item() / w.norm(dim=1).max().item()
+            print(f"B7 column {B} x {N} j={col}: max |w - plain| / max|w| {err:.2e}, max |h - "
+                  f"plain| / |w| {h_err:.2e}  [{card}]", flush=True)
+            if not (err <= 1e-6 and h_err <= 1e-12):
+                raise AssertionError(f"B7 column {B} x {N} j={col} differs from its plain version")
+            entry["max_abs_err"] = max(entry["max_abs_err"], (got[0] - ref[0]).abs().max().item())
+            del got, ref
+            if B == max(GS_PAIRS) and col == max(GS_COLUMNS):
+                target = entry
+            else:
+                target = entry.setdefault("at_path_shape", {})[f"column N={B} j={col}"] = {}
+            once, passes = gs_bytes(B, N, col + 1)
+            time_kernel(target, f"B7 column j={col}", ck.gram_schmidt, ck.gram_schmidt_ref,
+                        (Vj, w, j, act, acc), (B, 1, N, 1), card,
+                        (once / HBM_BYTES_PER_S * 1e3, "bytes"))
+            target["library_ms"] = lib_ms
+            print(f"  three passes' bytes {passes / HBM_BYTES_PER_S * 1e3 * 1e3:.1f} us, "
+                  f"{passes / HBM_BYTES_PER_S * 1e3 / target['ms']:.2f} of it warm; the four "
+                  f"float64 bmm on all {R} rows {lib_ms * 1e3:.1f} us, "
+                  f"{lib_ms / target['ms']:.2f}x the kernel  [{card}]", flush=True)
+            del Vj
+        del V64
+        Z, x = V[:, :GS_RESTART].contiguous(), w
+        cols = torch.full((B,), GS_RESTART - 1, dtype=torch.int64, device=dev)
+        y = torch.randn(B, GS_RESTART, device=dev, generator=gen)
+        y[:, GS_RESTART - 1:] = 0
+        got, ref = ck.basis_update(x, y, Z, cols, acc), ck.basis_update_ref(x, y, Z, cols, acc)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item() / ref.abs().max().item()
+        print(f"B7 update {B} x {N} cols={GS_RESTART - 1}: max |x - plain| / max|x| {err:.2e}  "
+              f"[{card}]", flush=True)
+        if not err <= 1e-6:
+            raise AssertionError(f"B7 update {B} x {N} differs from its plain version")
+        target = entry.setdefault("at_path_shape", {})[f"update N={B} cols={GS_RESTART - 1}"] = {}
+        time_kernel(target, "B7 update", ck.basis_update, ck.basis_update_ref,
+                    (x, y, Z, cols, acc), (B, 1, N, 1), card,
+                    (gs_bytes(B, N, GS_RESTART - 1, False)[0] / HBM_BYTES_PER_S * 1e3, "bytes"))
+        Z64 = Z.double()
+        target["library_ms"] = device_ms(
+            lambda: x + torch.bmm(y.double()[:, None, :], Z64)[:, 0].float(), launches=10)
+        print(f"  the float64 bmm on all {GS_RESTART} rows {target['library_ms'] * 1e3:.1f} us  "
+              f"[{card}]", flush=True)
+        del V, w, Z, Z64, got, ref
+        torch.cuda.empty_cache()
+
+
 def v_cycle_replays(n, card, replays=3):
     """The V-cycle at the sweep's chunk of ``n`` cells captured as a Krylov
     step is (``krylov._Step``), then replayed ``replays`` times, the counters
@@ -857,7 +961,7 @@ def _short(mangled):
     el_df32_kernel<1,0> or restrict_kernel<1,8,32>."""
     import re
 
-    found = re.search(r"\d+((?:el|mg)_\w+?kernel|sweep_restrict_kernel|restrict_kernel|"
+    found = re.search(r"\d+((?:el|mg|gs)_\w+?kernel|sweep_restrict_kernel|restrict_kernel|"
                       r"prolong_sweep_kernel|prolong_kernel)", mangled)
     name = found.group(1) if found else mangled
     args = re.findall(r"L[a-zA-Z]\w*?E?(\d+)E", mangled[found.end():] if found else "")
@@ -891,6 +995,7 @@ def reset_counters():
     ck.LAUNCHES = ck.PLAIN_CALLS = ck.CORE_LAUNCHES = ck.CORE_PLAIN_CALLS = 0
     ck.EXT_LAUNCHES = ck.EXT_PLAIN_CALLS = ck.DF_LAUNCHES = ck.DF_PLAIN_CALLS = 0
     ck.MG_LAUNCHES = ck.MG_PLAIN_CALLS = ck.MGT_LAUNCHES = ck.MGT_PLAIN_CALLS = 0
+    ck.GS_LAUNCHES = ck.GS_PLAIN_CALLS = 0
     observability.reset()
     torch.cuda.synchronize()
 
@@ -903,7 +1008,7 @@ def read_counters():
             "B2 plain": ck.CORE_PLAIN_CALLS, "B3": ck.EXT_LAUNCHES,
             "B3 plain": ck.EXT_PLAIN_CALLS, "B4": ck.DF_LAUNCHES, "B4 plain": ck.DF_PLAIN_CALLS,
             "B5": ck.MG_LAUNCHES, "B5 plain": ck.MG_PLAIN_CALLS, "B6": ck.MGT_LAUNCHES,
-            "B6 plain": ck.MGT_PLAIN_CALLS,
+            "B6 plain": ck.MGT_PLAIN_CALLS, "B7": ck.GS_LAUNCHES, "B7 plain": ck.GS_PLAIN_CALLS,
             "host syncs": observability.counts().get("krylov/host_syncs", 0),
             "graph captures": observability.counts().get("krylov/graph_captures", 0),
             "graph replays": GRAPH_REPLAYS[0],
@@ -917,7 +1022,7 @@ def bypassed(counts, kernel, graphs=True):
     version; or, with ``graphs``, replayed no Krylov step from a CUDA graph
     (without, the exchange route's eager loop: captured one)."""
     others = [k for k in ("B1", "B2", "B3") if k != kernel]
-    plains = [f"{k} plain" for k in ("B1", "B2", "B3", "B4", "B5", "B6")]
+    plains = [f"{k} plain" for k in ("B1", "B2", "B3", "B4", "B5", "B6", "B7")]
     missed = any(counts[k] == 0 for k in (kernel, "B4", "B5", "B6"))
     route = counts["graph replays"] == 0 if graphs else counts["graph captures"] > 0
     return missed or route or any(counts[k] for k in others + plains)
@@ -957,7 +1062,7 @@ def large_grid_path(large, dev, card):
               f"{EPE_LIMIT_PX:g})  [{card}]", flush=True)
         if not result["converged_all"].all():
             raise AssertionError(f"1024 matvec={matvec!r} did not converge")
-        if bypassed(counts, kernel):
+        if bypassed(counts, kernel) or counts["B7"] == 0:
             raise AssertionError(f"1024 matvec={matvec!r} bypassed its kernel: {counts}")
         if result["v_x"].shape != (1, LARGE_DIM, LARGE_DIM) or not np.isfinite(result["v_x"]).all():
             raise AssertionError("1024: bad shape or non-finite values")
@@ -1586,6 +1691,7 @@ def main():
     check_extended_kernel(movie, large, dev, smi, entries["el_matvec_extended"])
     check_df32_kernel(movie, large, stack[:2].astype(np.float32), dev, smi, entries["el_df32"])
     check_mg_kernels(dev, smi, entries)
+    check_gs_kernel(dev, smi, entries["gram_schmidt"])
     usage = kernel_usage()
     for kernel, entry in entries.items():
         used = usage.get(os.path.basename(KERNELS[kernel][1]))

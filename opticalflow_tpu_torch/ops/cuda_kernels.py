@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the port, their builds, wrappers and plain
 versions.
 
-Six kernels, three of them on the stencil of ``csrc/el_stencil.cuh``:
+Seven kernels, three of them on the stencil of ``csrc/el_stencil.cuh``:
 
 * the fused reduced Euler-Lagrange matvec (``csrc/el_matvec.cu``), the
   Hopper counterpart of the TPU kernel
@@ -51,7 +51,17 @@ Six kernels, three of them on the stencil of ``csrc/el_stencil.cuh``:
   for bit.  A level's stencil and block inverse are checked once per
   hierarchy (:func:`mg_check_level`, from ``multigrid.setup`` and
   ``take``, whose calls pass ``checked=True``); each call checks its
-  fields.
+  fields;
+* FGMRES's Gram-Schmidt and solution update (``csrc/krylov_gs.cu``, B7),
+  which has no Pallas counterpart either: it replaces the matrix products
+  of ``opticalflow_tpu/solve/krylov.py::fgmres``'s CGS2 and solution
+  product.  Wrappers :func:`gram_schmidt` (one Arnoldi column, six
+  launches) and :func:`basis_update` (one launch), plain versions
+  :func:`gram_schmidt_ref` and :func:`basis_update_ref` (``torch.bmm`` on
+  the rows each pair uses), counters ``GS_LAUNCHES`` and
+  ``GS_PLAIN_CALLS``.  The bases are stored in the field dtype and summed
+  in the accumulation dtype, both taken from the call; the kernel's sums
+  differ from the plain version's by their order only.
 
 The three matvec kernels are instances of one tiled kernel
 (``csrc/el_tiles.cuh``) with their staging rule as its parameter; none has
@@ -79,6 +89,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -108,6 +119,8 @@ MG_PLAIN_CALLS = 0  # calls of their plain versions (the *_ref functions)
 MGT_LAUNCHES = 0  # launches by mg_residual_restrict, mg_prolong_add, mg_smooth_restrict and
 # mg_prolong_smooth (B6)
 MGT_PLAIN_CALLS = 0  # calls of their plain versions
+GS_LAUNCHES = 0  # kernel launches by gram_schmidt (six a call) and basis_update (one) (B7)
+GS_PLAIN_CALLS = 0  # calls of their plain versions gram_schmidt_ref and basis_update_ref
 BUILD_SECONDS = None  # wall time of this process's nvcc builds, if it built
 BUILD_LOG = ""  # nvcc's output of those builds (-Xptxas -v: registers, smem)
 
@@ -134,6 +147,11 @@ _MG_SMOOTH_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, 
                                                                  ctypes.c_void_p]
 _MG_TRANSFER_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
                                                                   ctypes.c_void_p]
+# B7 takes (mode, types, V, w, w_out, j, act, y, work, h, norms, B, R, N, C,
+# L, stream)
+_GS_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+               ctypes.c_void_p])
 # C entry point of each source, its argument types and the flags it adds to
 # NVCC_FLAGS: B4's error-free transforms are exact only if no product and
 # sum are contracted into a fused multiply-add, and B5 and B6 equal their
@@ -143,7 +161,8 @@ ENTRY_POINTS = {"el_matvec.cu": ("el_matvec_reduced_fused", _PAIRS_ARGS, ()),
                 "el_matvec_ext.cu": ("el_matvec_tiled", _TILES_ARGS, ()),
                 "el_df32.cu": ("el_df32", _DF32_ARGS, ("-fmad=false",)),
                 "mg_smooth.cu": ("mg_smooth", _MG_SMOOTH_ARGS, ("-fmad=false",)),
-                "mg_transfer.cu": ("mg_transfer", _MG_TRANSFER_ARGS, ("-fmad=false",))}
+                "mg_transfer.cu": ("mg_transfer", _MG_TRANSFER_ARGS, ("-fmad=false",)),
+                "krylov_gs.cu": ("krylov_gs", _GS_ARGS, ())}
 # queries a source's library may export beside its entry point, loaded
 # where it has them: B4's warps resident on one SM, (P, residual, int *out)
 QUERIES = {"el_df32.cu": {"el_df32_warps_per_sm": [ctypes.c_int, ctypes.c_int,
@@ -1112,3 +1131,175 @@ def mg_prolong_smooth(S: torch.Tensor, binv: torch.Tensor, x: torch.Tensor, e: t
     out = x.new_empty(x.shape)
     return _launch_mgt(x.device, 1, out, S=S, binv=binv, x=x, b=b, e=e,
                        shape=(B, 1, M, N, Mc, Nc), damp=damp, mode=MGT_PROLONG_SWEEP)
+
+
+# ---------------------------------------------------------------------------
+# Kernel B7: FGMRES's Gram-Schmidt (CGS2) and solution update.
+# ---------------------------------------------------------------------------
+
+GS_COLUMN, GS_UPDATE = 0, 1  # B7's modes (csrc/krylov_gs.cu)
+# (storage dtype, accumulation dtype) -> B7's types
+GS_TYPES = {(torch.float32, torch.float64): 0, (torch.float32, torch.float32): 1,
+            (torch.float64, torch.float64): 2}
+GS_MAX_ROWS = 65  # the rows of B7's largest instance: restarts up to 64
+GS_MAX_PAIRS = 65535  # B7's grid: the pair is its y block index
+GS_THREADS = 256  # a block of B7, one chunk of a pair's elements
+GS_BLOCKS_PER_SM = 16  # blocks a launch aims at, per SM of the card, over all pairs
+GS_CHUNK = (2048, 8192)  # the least and the most elements of a chunk (multiples of 1024)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def gs_chunks(B: int, N: int, device: torch.device):
+    """(C, L): B7 cuts each of the B pairs' N elements into C chunks of L
+    elements, one block a chunk: about ``GS_BLOCKS_PER_SM`` blocks an SM
+    over the B pairs, L within ``GS_CHUNK`` and a multiple of 1024 (4
+    elements a thread at a time).  The summation order, and so the bits,
+    follow from (B, N) and the card."""
+    lo, hi = GS_CHUNK
+    per_pair = -(-GS_BLOCKS_PER_SM * _sm_count(device.index) // B)
+    L = min(hi, max(lo, -(-N // per_pair)))
+    L = -(-L // 1024) * 1024
+    return -(-N // L), L
+
+
+def _check_pair_index(name: str, t: torch.Tensor, B: int) -> None:
+    if tuple(t.shape) != (B,) or t.dtype != torch.int64:
+        raise ValueError(f"{name} must be ({B},) int64, got {tuple(t.shape)} of {t.dtype}")
+
+
+def _check_gs(V: torch.Tensor, w: torch.Tensor, j: torch.Tensor, act: torch.Tensor):
+    """(B, R, N) of a column: V (B, R, N), w (B, N) of V's dtype, j (B,)
+    int64, act (B,) bool; or ValueError / TypeError."""
+    if V.dim() != 3:
+        raise ValueError(f"V must be (B, R, N), got {tuple(V.shape)}")
+    B, R, N = V.shape
+    if tuple(w.shape) != (B, N) or w.dtype != V.dtype:
+        raise ValueError(f"w must be {(B, N)} of {V.dtype}, got {tuple(w.shape)} of {w.dtype}")
+    _check_pair_index("j", j, B)
+    if tuple(act.shape) != (B,) or act.dtype != torch.bool:
+        raise ValueError(f"act must be ({B},) bool, got {tuple(act.shape)} of {act.dtype}")
+    return B, R, N
+
+
+def _check_update(x: torch.Tensor, y: torch.Tensor, Z: torch.Tensor, cols: torch.Tensor):
+    """(B, m, N) of an update: Z (B, m, N), x (B, N) and y (B, m) of Z's
+    dtype, cols (B,) int64; or ValueError."""
+    if Z.dim() != 3:
+        raise ValueError(f"Z must be (B, m, N), got {tuple(Z.shape)}")
+    B, m, N = Z.shape
+    for name, t, shape in (("x", x, (B, N)), ("y", y, (B, m))):
+        if tuple(t.shape) != shape or t.dtype != Z.dtype:
+            raise ValueError(f"{name} must be {shape} of {Z.dtype}, got {tuple(t.shape)} of "
+                             f"{t.dtype}")
+    _check_pair_index("cols", cols, B)
+    return B, m, N
+
+
+def _gs_launch(mode: int, acc: torch.dtype, rows: int, storage: torch.Tensor,
+               tensors: Dict[str, torch.Tensor], args: tuple, launches: int) -> None:
+    """Check a B7 call's operands on the card (one CUDA device, contiguous,
+    a (storage, ``acc``) pair B7 takes, ``rows`` and the pairs within its
+    grid) and launch it on the current stream; raises on anything the
+    kernel does not take and on a failed launch, else counts
+    ``launches``."""
+    device = storage.device
+    for name, t in tensors.items():
+        if t.device != device or t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}; all operands must be on one CUDA device")
+    _check_contiguous(**tensors)
+    types = GS_TYPES.get((storage.dtype, acc))
+    if types is None:
+        raise TypeError(f"B7 stores float32 or float64 and sums in float64 or the storage dtype, "
+                        f"got {storage.dtype} summed in {acc}")
+    if rows > GS_MAX_ROWS:
+        raise ValueError(f"B7 takes at most {GS_MAX_ROWS} rows (restart {GS_MAX_ROWS - 1}), "
+                         f"got {rows}")
+    if storage.shape[0] > GS_MAX_PAIRS:
+        raise ValueError(f"B7 takes at most {GS_MAX_PAIRS} pairs, got {storage.shape[0]}")
+    rc = _call(load_library()["krylov_gs"], device, 1, (mode, types) + args)
+    if rc != 0:
+        raise RuntimeError(f"krylov_gs kernel launch failed: cudaError {rc}")
+    for _ in range(launches):
+        _count("GS_LAUNCHES")
+
+
+def gram_schmidt_ref(V: torch.Tensor, w: torch.Tensor, j: torch.Tensor, act: torch.Tensor,
+                     acc: torch.dtype):
+    """Plain version of B7's Arnoldi column: classical Gram-Schmidt with one
+    reorthogonalisation of w (B, N) against rows 0..j of V (B, R, N) of each
+    pair, as ``solve.krylov.fgmres`` computed it, ``torch.bmm`` on V's rows
+    in ``acc`` with the rows past j as zeros (never read):
+    h1 = V w, w1 = w - (V^T h1) cast to w's dtype, h2 = V w1, w2 = w1 -
+    (V^T h2) cast.  Returns (w2, h (B, 2, R): h1 and h2 in ``acc``, norms
+    (B, 2): |w|^2 and |w2|^2 in ``acc``).  ``act`` is not read: every pair
+    is computed (the kernel may skip a pair whose flag is clear)."""
+    B, R, N = _check_gs(V, w, j, act)
+    _count("GS_PLAIN_CALLS")
+    used = torch.arange(R, device=V.device)[None, :] <= j[:, None]
+    Va = torch.where(used[:, :, None], V, 0).to(acc)
+    wa = w.to(acc)
+    h1 = torch.bmm(Va, wa[:, :, None])
+    w1 = w - torch.bmm(Va.transpose(1, 2), h1)[..., 0].to(w.dtype)
+    w1a = w1.to(acc)
+    h2 = torch.bmm(Va, w1a[:, :, None])
+    w2 = w1 - torch.bmm(Va.transpose(1, 2), h2)[..., 0].to(w.dtype)
+    w2a = w2.to(acc)
+    norms = torch.stack([(wa * wa).sum(dim=1), (w2a * w2a).sum(dim=1)], dim=1)
+    return w2, torch.stack([h1[..., 0], h2[..., 0]], dim=1), norms
+
+
+def gram_schmidt(V: torch.Tensor, w: torch.Tensor, j: torch.Tensor, act: torch.Tensor,
+                 acc: torch.dtype):
+    """The Arnoldi column of :func:`gram_schmidt_ref`: CUDA tensors go
+    through kernel B7 (V and w contiguous, stored in float32 or float64,
+    summed in ``acc``: float64, or the storage dtype), which reads rows
+    0..j of each pair whose ``act`` flag is set and no other row, and
+    differs from the plain version by its summation order; a pair whose
+    flag is clear gets its w back and zero dots.  CPU tensors go through
+    the plain version."""
+    if _on_cpu(V, w, j, act):
+        return gram_schmidt_ref(V, w, j, act, acc)
+    B, R, N = _check_gs(V, w, j, act)
+    C, L = gs_chunks(B, N, V.device)
+    w_out = torch.empty_like(w)
+    work = V.new_empty(2 * B * C * (R + 1), dtype=acc)
+    h = V.new_empty((B, 2, R), dtype=acc)
+    norms = V.new_empty((B, 2), dtype=acc)
+    _gs_launch(GS_COLUMN, acc, R, V, dict(V=V, w=w, j=j, act=act),
+               (V.data_ptr(), w.data_ptr(), w_out.data_ptr(), j.data_ptr(), act.data_ptr(),
+                None, work.data_ptr(), h.data_ptr(), norms.data_ptr(), B, R, N, C, L), 6)
+    return w_out, h, norms
+
+
+def basis_update_ref(x: torch.Tensor, y: torch.Tensor, Z: torch.Tensor, cols: torch.Tensor,
+                     acc: torch.dtype) -> torch.Tensor:
+    """Plain version of B7's update: x (B, N) plus the sum over rows i <
+    cols of y_i Z_i, Z (B, m, N) and y (B, m), as ``solve.krylov.fgmres``
+    computed it, ``torch.bmm`` in ``acc`` with the rows from cols on as
+    zeros (never read), cast to x's dtype before the addition."""
+    B, m, N = _check_update(x, y, Z, cols)
+    _count("GS_PLAIN_CALLS")
+    used = torch.arange(m, device=Z.device)[None, :] < cols[:, None]
+    Za = torch.where(used[:, :, None], Z, 0).to(acc)
+    return x + torch.bmm(y.to(acc)[:, :, None].transpose(1, 2), Za)[:, 0].to(x.dtype)
+
+
+def basis_update(x: torch.Tensor, y: torch.Tensor, Z: torch.Tensor, cols: torch.Tensor,
+                 acc: torch.dtype) -> torch.Tensor:
+    """x + sum_{i < cols} y_i Z_i of :func:`basis_update_ref`: CUDA tensors
+    go through kernel B7 (contiguous), which reads rows 0..cols-1 of Z and
+    no other row, and differs from the plain version by its summation
+    order; CPU tensors through the plain version."""
+    if _on_cpu(x, y, Z, cols):
+        return basis_update_ref(x, y, Z, cols, acc)
+    B, m, N = _check_update(x, y, Z, cols)
+    C, L = gs_chunks(B, N, Z.device)
+    out = torch.empty_like(x)
+    _gs_launch(GS_UPDATE, acc, m, Z, dict(x=x, y=y, Z=Z, cols=cols),
+               (Z.data_ptr(), x.data_ptr(), out.data_ptr(), cols.data_ptr(), None,
+                y.data_ptr(), None, None, None, B, m, N, C, L), 1)
+    return out

@@ -402,19 +402,24 @@ def fgmres(
     on <1% progress per cycle, and keeping each pair's best iterate.
 
     Built as the JAX solver is: the Arnoldi basis V (B, restart+1, N) and
-    the flexible basis Z (B, restart, N) are kept at full size, both in the
-    accumulation dtype (float64 for float32 fields by default), and each
-    pair's column index ``j`` is a device tensor.  CGS2 projects on the
-    whole of V, whose rows not yet written are zero; the earlier rotations
-    run over all ``restart`` positions, masked to those below ``j``; the new
-    rotation, the guards, ``g``, the estimate and ``rmax`` are device ops in
+    the flexible basis Z (B, restart, N) are kept at full size, both in
+    ``b.dtype``, and each pair's column index ``j`` is a device tensor.
+    CGS2 and the solution product x + Z^T y are kernel B7 on the card
+    (``cuda_kernels.gram_schmidt`` and ``basis_update``; their plain
+    versions, ``torch.bmm``, on the CPU): the basis read in ``b.dtype``,
+    every product and sum in the accumulation dtype (float64 for float32
+    fields by default), each projection cast to ``b.dtype`` before it is
+    subtracted, and only the rows each pair has written (0..j of V, those
+    below the columns used of Z).  The earlier rotations run over all
+    ``restart`` positions, masked to those below ``j``; the new rotation,
+    the guards, ``g``, the estimate and ``rmax`` are device ops in
     ``b.dtype``.  One Arnoldi column is one :class:`_Step`, replayed from a
     CUDA graph on the card, with the cycle's exit read once per chunk of
     columns.  The least squares of each restart (``solve_triangular`` over
     each pair's columns) and the truncation guard run on the device too;
     the restart reads the device once, twice where a pair's truncations
-    are evaluated.  The products are batched in the accumulation dtype,
-    independent of the caller's TF32 setting.
+    are evaluated.  The caller's operators run without TF32, whatever the
+    caller's setting.
     """
     acc = acc_dtype(b.dtype, high_precision_reductions)
 
@@ -439,8 +444,8 @@ def fgmres(
     stalled = torch.zeros(B, dtype=torch.bool, device=dev)
 
     # the cycle's buffers, in place across its columns and its restarts
-    V = torch.zeros((B, m + 1, N), dtype=acc, device=dev)
-    Z = torch.zeros((B, m, N), dtype=acc, device=dev)
+    V = torch.zeros((B, m + 1, N), dtype=dt, device=dev)
+    Z = torch.zeros((B, m, N), dtype=dt, device=dev)
     R = torch.zeros((B, m + 1, m), dtype=dt, device=dev)
     rot0 = torch.zeros((B, m, 2), dtype=dt, device=dev)  # rotation i: (c, -s) ...
     rot1 = torch.zeros((B, m, 2), dtype=dt, device=dev)  # ... and (s, c)
@@ -456,21 +461,17 @@ def fgmres(
 
     def column():
         """Arnoldi column j of every pair, committed where ``act``."""
-        vj = V[pairs, j]
-        z = precond(vj.to(dt).reshape(b.shape))
-        w = matvec(z).reshape(B, N)
-        w_entry = torch.sqrt(dot(w, w)).to(dt)
-        h1 = torch.bmm(V, w.to(acc)[:, :, None])
-        w = w - torch.bmm(V.transpose(1, 2), h1)[..., 0].to(dt)
-        h2 = torch.bmm(V, w.to(acc)[:, :, None])
-        w = w - torch.bmm(V.transpose(1, 2), h2)[..., 0].to(dt)
-        h = (h1 + h2)[..., 0].to(dt)  # (B, m+1)
-        hj1 = torch.sqrt(dot(w, w)).to(dt)
-        v_next = (w / torch.clamp(hj1, min=tiny)[:, None]).to(acc)
+        z = precond(V[pairs, j].reshape(b.shape))
+        # CGS2 against rows 0..j: w, h = [h1; h2], norms = |w|^2 before, after
+        w, hh, norms = cuda_kernels.gram_schmidt(V, matvec(z).reshape(B, N).contiguous(), j,
+                                                 act, acc)
+        w_entry, hj1 = torch.sqrt(norms).to(dt).unbind(1)
+        h = (hh[:, 0] + hh[:, 1]).to(dt)  # (B, m+1)
+        v_next = w / torch.clamp(hj1, min=tiny)[:, None]
         j1, jz = torch.clamp(j + 1, max=m), torch.clamp(j, max=m - 1)  # in range when frozen
         a = act[:, None]
         V[pairs, j1] = torch.where(a, v_next, V[pairs, j1])
-        Z[pairs, jz] = torch.where(a, z.reshape(B, N).to(acc), Z[pairs, jz])
+        Z[pairs, jz] = torch.where(a, z.reshape(B, N), Z[pairs, jz])
 
         # the new column [h with position j+1 := hj1], the earlier rotations
         col = torch.where(rows == (j + 1)[:, None], hj1[:, None], h)
@@ -517,7 +518,8 @@ def fgmres(
         gm = torch.where(used, g[:, :m], 0.0)
         y = torch.linalg.solve_triangular(Rm, gm[:, :, None], upper=True)
         y = torch.where(used[:, :, None], y, 0.0)
-        xc = x + torch.bmm(y.to(acc).transpose(1, 2), Z)[:, 0].to(dt).reshape(x.shape)
+        xc = cuda_kernels.basis_update(x.reshape(B, N).contiguous(), y[..., 0], Z, cols,
+                                       acc).reshape(x.shape)
         rc = b - matvec(xc)
         return xc, torch.sqrt(dot(rc, rc))
 
@@ -536,7 +538,7 @@ def fgmres(
         r = b - matvec(x)
         beta = torch.sqrt(dot(r, r)).to(dt)
         V.zero_()
-        V[:, 0] = (r.reshape(B, N) / torch.clamp(beta, min=tiny)[:, None]).to(acc)
+        V[:, 0] = r.reshape(B, N) / torch.clamp(beta, min=tiny)[:, None]
         for buf in (Z, R, rot0, rot1, g, j, brk, rmax):
             buf.zero_()
         g[:, 0] = beta

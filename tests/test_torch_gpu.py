@@ -1004,16 +1004,21 @@ def _assert_same_result(res, ref):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("method", ["bicgstab", "cg"])
+@pytest.mark.parametrize("method", ["bicgstab", "cg", "fgmres"])
 def test_graphed_krylov_solve_equals_its_uncaptured_steps(method, monkeypatch):
     """The solve replayed from its CUDA graph and the same steps run on the
     card without capture (``krylov._uncaptured``): the same bits, and the
-    same kernel launches counted (a capture's counts added per replay)."""
+    same kernel launches counted (a capture's counts added per replay);
+    FGMRES's Gram-Schmidt on kernel B7, no plain version."""
     from opticalflow_tpu_torch.solve import krylov
     from opticalflow_tpu_torch.utils import observability
 
+    def counters():
+        return (ck.LAUNCHES, ck.MG_LAUNCHES, ck.MGT_LAUNCHES, ck.GS_LAUNCHES,
+                ck.GS_PLAIN_CALLS)
+
     dev = _cuda()
-    if method == "bicgstab":
+    if method in ("bicgstab", "fgmres"):
         matvec, b, precond = _card_system(dev)
     else:
         matvec, b, precond = _laplacian_system(dev)
@@ -1021,17 +1026,16 @@ def test_graphed_krylov_solve_equals_its_uncaptured_steps(method, monkeypatch):
     kw = dict(precond=precond, rtol=1e-6, max_iterations=300)
     observability.reset()
     replays = _count_replays(monkeypatch)
-    launches = ck.LAUNCHES, ck.MG_LAUNCHES, ck.MGT_LAUNCHES
+    launches = counters()
     graphed = solve(matvec, b, **kw)
-    graphed_launches = (ck.LAUNCHES - launches[0], ck.MG_LAUNCHES - launches[1],
-                        ck.MGT_LAUNCHES - launches[2])
+    graphed_launches = tuple(a - c for a, c in zip(counters(), launches))
     counts = observability.counts()
     assert counts["krylov/graph_captures"] == 1 and replays[0] > 0
-    launches = ck.LAUNCHES, ck.MG_LAUNCHES, ck.MGT_LAUNCHES
+    assert (graphed_launches[3] > 0) == (method == "fgmres") and graphed_launches[4] == 0
+    launches = counters()
     with krylov._uncaptured():
         eager = solve(matvec, b, **kw)
-    assert (ck.LAUNCHES - launches[0], ck.MG_LAUNCHES - launches[1],
-            ck.MGT_LAUNCHES - launches[2]) == graphed_launches
+    assert tuple(a - c for a, c in zip(counters(), launches)) == graphed_launches
     assert observability.counts()["krylov/graph_captures"] == 1  # none more
     _assert_same_result(graphed, eager)
     assert (graphed.iterations > 1).all()
