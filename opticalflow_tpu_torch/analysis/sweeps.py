@@ -11,8 +11,13 @@ most ``batch_chunk`` solves.
 Each chunk's host-checked Krylov and refinement loops run until its
 slowest pair stops, so a chunk's wall time is set by its worst cell (the
 extreme-alpha corners may run to ``max_iterations``).  Every chunk records
-its largest iteration count as ``sweep/chunk_max_iterations`` and its wall
-time as the span ``sweep/chunk`` (utils.observability).
+(utils.observability) its largest iteration count as
+``sweep/chunk_max_iterations``, the sum of its cells' iteration counts as
+``sweep/chunk_cell_iterations`` (a cell's count is its pairs' mean, its
+one pair's count in a one-pair sweep), its cell count as
+``sweep/chunk_cells``, its cells that end unconverged in the counter
+``sweep/unconverged_cells``, and its wall time as the span ``sweep/chunk``.
+All of them come from the copies the chunk makes to the host anyway.
 """
 
 from __future__ import annotations
@@ -174,14 +179,19 @@ def _batched_sweep(movie, speed_alphas, remodelling_alphas, delta_x=1.0, delta_t
             alphas[:, 1].repeat_interleave(n_pairs), dy_mode=dy_mode, **kw)
         stats = _chunk_statistics(u, info, n_cells, n_pairs, delta_x / delta_t)
         chunk_outs.append({key: value.cpu().numpy() for key, value in stats.items()})
-        max_iterations = int(info["iterations"].max())
+        # every slot's count in one copy, where a read of their maximum was
+        iterations = info["iterations"].cpu().numpy().reshape(n_cells, n_pairs)
+        max_iterations = int(iterations.max())
+        converged = int(chunk_outs[-1]["converged"].sum())
         seconds = time.perf_counter() - t0
         observability.record_value("sweep/chunk_max_iterations", max_iterations)
+        observability.record_value("sweep/chunk_cell_iterations", iterations.mean(axis=1).sum())
+        observability.record_value("sweep/chunk_cells", n_cells)
+        observability.add_count("sweep/unconverged_cells", n_cells - converged)
         observability.record_span("sweep/chunk", seconds)
         observability.logger.info(
             "sweep chunk of %d cells x %d pairs: %.3fs, max iterations %d, converged %d/%d",
-            n_cells, n_pairs, seconds, max_iterations, int(chunk_outs[-1]["converged"].sum()),
-            n_cells)
+            n_cells, n_pairs, seconds, max_iterations, converged, n_cells)
     out = {key: np.concatenate([c[key] for c in chunk_outs]) for key in chunk_outs[0]}
     shape = (len(speed_alphas), len(remodelling_alphas))
     return {

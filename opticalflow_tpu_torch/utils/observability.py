@@ -32,7 +32,9 @@ What the port records, and where (the benchmark's readers in
   set) and ``refinement/retakes`` (its re-slices of the operators and
   hierarchy to a smaller active set);
 * series ``variational/pair_s`` (each pair's host wall in the sequential
-  loop) and ``sweep/chunk_max_iterations``, span ``sweep/chunk``
+  loop); per sweep chunk the series ``sweep/chunk_max_iterations``,
+  ``sweep/chunk_cell_iterations`` and ``sweep/chunk_cells``, the counter
+  ``sweep/unconverged_cells`` and the span ``sweep/chunk``
   (analysis.sweeps);
 * the command line's and the workflows' spans (``drivers/load``,
   ``drivers/save``, ``drivers/plot``; ``flow:<method>``, ``viz:*`` and

@@ -18,6 +18,7 @@ from torch_threads import one_intra_op_thread  # noqa: F401,I001 (autouse; first
 
 import contextlib
 import statistics
+import traceback
 import warnings
 
 import numpy as np
@@ -254,3 +255,46 @@ def test_every_sync_of_a_sequential_call_is_a_host_wait_or_the_copy_to_host(monk
     assert result["converged_all"].all()
     outside = [spans for spans in syncs if not SYNC_SPANS & set(spans)]
     assert syncs and not outside, outside
+
+
+@pytest.mark.gpu
+def test_a_sweep_chunk_copies_to_the_host_once_a_statistic_and_once_for_its_iterations(
+        monkeypatch):
+    """A 3-cell sweep of 64x64 in chunks of two cells and one under
+    ``torch.cuda.set_sync_debug_mode('warn')``: of the synchronising calls
+    made on ``analysis/sweeps.py``'s own lines (those of the chunk's solve
+    are the sequential test's above), each chunk copies to the host once a
+    statistic and once for its cells' iteration counts, as when it read
+    only their maximum, and no line that records the chunk's series or
+    counter synchronises."""
+    from opticalflow_tpu_torch.analysis import sweeps
+
+    dev = _cuda()
+    movie = _movie(2, 64)
+    grid = ([100.0, 1000.0, 1e4], [300.0])
+    sweeps.vary_regularisation(movie, *grid, batch_chunk=2, device=dev)  # builds and warms up
+    torch.cuda.synchronize()
+    lines = []
+
+    def hook(message, *args, **kwargs):
+        if "called a synchronizing CUDA operation" in str(message):
+            own = [f for f in traceback.extract_stack()
+                   if f.filename.endswith("analysis/sweeps.py")]
+            if own and own[-1].name == "_batched_sweep":
+                lines.append(own[-1].line)
+
+    observability.reset()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sweeps.vary_regularisation(movie, *grid, batch_chunk=2, device=dev)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    info = {k: torch.zeros(1) for k in ("converged", "L1_functional", "speed_functional",
+                                        "remodelling_functional")}
+    n_stats = len(sweeps._chunk_statistics(torch.zeros(1, 3, 4, 4), info, 1, 1, 1.0))
+    assert observability.values()["sweep/chunk_cells"] == [2.0, 1.0]
+    assert sum(".cpu()" in line for line in lines) == 2 * (n_stats + 1), lines
+    assert not [line for line in lines if "observability" in line], lines
