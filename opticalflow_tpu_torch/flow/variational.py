@@ -255,18 +255,34 @@ def solve_frame_pair(
         elif preconditioner not in ("block_jacobi", "none"):
             raise ValueError(f"unknown preconditioner {preconditioner!r}")
 
-    def precond_of(idx=None):
-        """The preconditioner of the pairs ``idx`` (every pair when None)."""
+    def precond_of(coeffs, h):
+        """The preconditioner of the pairs of ``coeffs`` and hierarchy ``h``."""
         if preconditioner == "none":
             return None
-        coeffs = pair.coeffs if idx is None else _take(pair.coeffs, idx)
         if preconditioner == "block_jacobi":
             return functools.partial(elop.block_jacobi_inverse_apply_interior, coeffs)
-        h = hierarchy if idx is None else multigrid.take(
-            hierarchy, idx, make_matvec(prev[idx], a_s[idx], a_r[idx], coeffs))
         return functools.partial(multigrid.v_cycle, h, sweeps=mg_sweeps)
 
-    precond = precond_of()
+    precond = precond_of(pair.coeffs, hierarchy if preconditioner == "multigrid" else None)
+
+    def operators_of(idx, h=None, rows=None, coarse_in_batch=False):
+        """The fine matvec, the preconditioner and the hierarchy of the
+        pairs ``idx`` (indices into the batch), the hierarchy sliced from
+        ``h`` (the batch's when None) at its rows ``rows`` (``idx`` when
+        None) by ``multigrid.take``: no probing or factoring."""
+        coeffs = _take(pair.coeffs, idx)
+        fine = make_matvec(prev[idx], a_s[idx], a_r[idx], coeffs)
+        if preconditioner != "multigrid":
+            return fine, precond_of(coeffs, None), None
+        h = multigrid.take(hierarchy if h is None else h, idx if rows is None else rows, fine,
+                           coarse_in_batch)
+        return fine, precond_of(coeffs, h), h
+
+    def narrowing(subset):
+        """FGMRES's columns narrow to the pairs still going, on operators
+        from ``subset``, each pair's bits those it gets in the whole batch
+        (solve.krylov.fgmres)."""
+        return {"subset": subset} if method == "gmres" else {}
 
     # a matvec that copies between devices keeps the eager Krylov loop
     spans_devices = getattr(matvec, "spans_devices", False)
@@ -279,7 +295,8 @@ def solve_frame_pair(
                                    tol_floor_eps_multiple=tol_floor, **kwargs)
 
     with _phase(phase_timer, "krylov_main"):
-        res = solve(matvec, b_red, x0=u0_red, precond=precond, rtol=rtol)
+        res = solve(matvec, b_red, x0=u0_red, precond=precond, rtol=rtol,
+                    **narrowing(lambda idx: operators_of(idx, coarse_in_batch=True)[:2]))
 
     # Mixed-precision iterative refinement: each step evaluates b - A x
     # against double-float system data with x carried as a hi + lo pair,
@@ -291,7 +308,7 @@ def solve_frame_pair(
     # and re-evaluates only its active pairs, with the operator and the
     # preconditioner of those pairs (sliced from the batch's when the
     # active set shrinks), so pairs that have stopped cost nothing while
-    # others refine on.
+    # others refine on; within a step, FGMRES's columns narrow the same way.
     iterations = res.iterations
     if refinement_restarts > 0:
         with _phase(phase_timer, "refinement"):
@@ -310,8 +327,9 @@ def solve_frame_pair(
             r_norm = _norms(r_hi)
             r_prev = torch.full_like(r_norm, float("inf"))
             step = torch.zeros(B, dtype=torch.int32, device=r_norm.device)
-            # the df32 data, matvec and preconditioner of the active pairs
-            subset = (tuple(range(B)), ops, precond)
+            # the df32 data, preconditioner and hierarchy of the active pairs
+            subset = (tuple(range(B)), ops, precond,
+                      hierarchy if preconditioner == "multigrid" else None)
             while True:
                 active = ((step < refinement_restarts) & (r_norm > exit_tol)
                           & (r_norm < 0.999 * r_prev))
@@ -325,12 +343,21 @@ def solve_frame_pair(
                     idx = torch.tensor(pairs, device=x_hi.device)
                 if pairs != subset[0]:
                     observability.add_count("refinement/retakes")
-                    subset = (pairs, _take(ops, idx), precond_of(idx))
-                _, ops_a, precond_a = subset
+                    subset = (pairs, _take(ops, idx)) + operators_of(idx)[1:]
+                _, ops_a, precond_a, h_a = subset
+
+                def narrowed(rows, idx=idx, ops_a=ops_a, h_a=h_a):
+                    """The correction operators of the rows ``rows`` of this
+                    solve's batch."""
+                    ops_n = _take(ops_a, rows)
+                    precond_n = operators_of(idx[rows], h_a, rows, coarse_in_batch=True)[1]
+                    return (lambda u: cuda_kernels.el_matvec_df32(ops_n, u.contiguous()),
+                            precond_n)
+
                 res_c = solve(lambda u: cuda_kernels.el_matvec_df32(ops_a, u.contiguous()),
                               r_hi[idx],
                               x0=torch.zeros_like(r_hi[idx]), precond=precond_a,
-                              rtol=refinement_rtol)
+                              rtol=refinement_rtol, **narrowing(narrowed))
                 s_, e = df32.two_sum(x_hi[idx], res_c.x)
                 x_hi_n, x_lo_n = df32.fast_two_sum(s_, x_lo[idx] + e)
                 r_hi_n = cuda_kernels.el_residual_df32(ops_a, x_hi_n, x_lo_n)

@@ -8,27 +8,30 @@ stagnation and breakdown flags; FGMRES's column index, Givens rotations,
 residual estimate and guards) is a per-pair (B,) value.  A pair whose own
 exit test has fired is frozen: the batch's step is still computed for it,
 but its state is kept, exactly as under ``jax.vmap`` of the JAX
-``lax.while_loop``.
+``lax.while_loop``; FGMRES, given the operators of a subset of the pairs,
+runs its columns' operators on the pairs still going once at most half of
+them are (:func:`fgmres`), which changes no pair's arithmetic.
 
 The JAX solvers are one device program per solve.  Here a loop's step
 (one BiCGStab or CG iteration, one FGMRES Arnoldi column) reads and writes
-fixed state buffers, and on CUDA tensors it is captured once per call into
-a CUDA graph and replayed (:class:`_Step`): the kernels and torch ops of a
-step are launched as one graph, with no host work between them.  The host
-reads the loop's exit from the device once per chunk of ``CHUNK`` steps;
-every such read is counted as ``krylov/host_syncs`` and timed as the span
-``solve/host_wait``, every capture is counted as ``krylov/graph_captures``
-and its host time, the capture alone, is the span ``krylov/capture``
-(utils.observability).  Steps past a pair's exit inside a chunk leave its
-state as it was, so the results are those of a read after every step, bit
-for bit, whatever ``CHUNK`` is.  On the CPU the same steps run uncaptured.
+fixed state buffers, and on CUDA tensors it is captured once per call (and
+once per narrowing of FGMRES's columns) into a CUDA graph and replayed
+(:class:`_Step`): the kernels and torch ops of a step are launched as one
+graph, with no host work between them.  The host reads the loop's exit
+from the device once per chunk of ``CHUNK`` steps; every such read is
+counted as ``krylov/host_syncs`` and timed as the span ``solve/host_wait``,
+every capture is counted as ``krylov/graph_captures`` and its host time,
+the capture alone, is the span ``krylov/capture`` (utils.observability).
+Steps past a pair's exit inside a chunk leave its state as it was, so the
+results are those of a read after every step, bit for bit, whatever
+``CHUNK`` is.  On the CPU the same steps run uncaptured.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,6 +40,8 @@ from opticalflow_tpu_torch.utils import observability
 
 MatVec = Callable[[torch.Tensor], torch.Tensor]
 Precond = Callable[[torch.Tensor], torch.Tensor]
+# the operators of some of the batch's pairs, by their indices (fgmres)
+Subset = Callable[[torch.Tensor], Tuple[MatVec, Optional[Precond]]]
 
 # Steps between two reads of a loop's exit.  A read costs a host sync, the
 # card draining its queue before the host launches again; the steps a chunk
@@ -136,11 +141,11 @@ def _capture_context(device: torch.device) -> list:
     return contexts[device.index]
 
 
-def _any(flags: torch.Tensor) -> bool:
-    """Whether any of the (B,) device ``flags`` is set: one host sync."""
+def _count(flags: torch.Tensor) -> int:
+    """How many of the (B,) device ``flags`` are set: one host sync."""
     observability.add_count("krylov/host_syncs")
     with observability.host_wait():
-        return bool(flags.any())
+        return int(flags.sum())
 
 
 class _Step:
@@ -195,7 +200,7 @@ def _run_chunks(step: _Step, active: Callable[[], torch.Tensor], max_steps: int)
     read before each chunk; at most ``max_steps`` steps, after which no
     pair is active."""
     done = 0
-    while done < max_steps and _any(active()):
+    while done < max_steps and _count(active()):
         for _ in range(min(CHUNK, max_steps - done)):
             step()
         done += CHUNK
@@ -387,6 +392,7 @@ def fgmres(
     high_precision_reductions: bool = True,
     tol_floor_eps_multiple: float = 300.0,
     truncation_guard: bool = True,
+    subset: Optional[Subset] = None,
 ) -> KrylovResult:
     """Flexible GMRES(restart) on a batch of systems, right-preconditioned:
     the robust large-grid solver (why, and the guards below, are explained
@@ -420,6 +426,21 @@ def fgmres(
     the restart reads the device once, twice where a pair's truncations
     are evaluated.  The caller's operators run without TF32, whatever the
     caller's setting.
+
+    ``subset``: ``None``, or a callable ``idx -> (matvec, precond)`` that
+    returns the operators of the pairs ``idx`` (a device tensor of indices
+    into the batch), each pair's rows bit for bit those of the batch's
+    operators.  With it, a restart whose read finds at least one and at
+    most half of the pairs the columns run on still going narrows the
+    columns to those pairs: the preconditioner, the matvec and the updates
+    of V and Z run on their rows alone, through a fresh step captured once.
+    Everything whose summation order follows the batch size (B7, the norms,
+    the least squares) still runs on the whole batch, where a pair that has
+    stopped costs no reads of its basis, so no pair's arithmetic changes.
+    A batch whose pairs stop together, or of one pair, is never narrowed.
+    Counted: ``krylov/compactions`` (each narrowing) and
+    ``krylov/slot_columns`` (the pairs a column step runs on, at every
+    step), utils.observability.
     """
     acc = acc_dtype(b.dtype, high_precision_reductions)
 
@@ -458,20 +479,32 @@ def fgmres(
     k_cycle = torch.zeros_like(k)  # k at the cycle's start
     pairs = torch.arange(B, device=dev)
     rows = torch.arange(m + 1, device=dev)
+    # the pairs the columns run on (None: every pair), their operators, and
+    # B7's input, where the other pairs' rows are never read
+    narrow, col_matvec, col_precond, w_in = None, matvec, precond, None
 
     def column():
-        """Arnoldi column j of every pair, committed where ``act``."""
-        z = precond(V[pairs, j].reshape(b.shape))
+        """Arnoldi column j of the pairs the columns run on, committed where
+        ``act``."""
+        cols = pairs if narrow is None else narrow
+
+        def own(t):
+            return t if narrow is None else t.index_select(0, narrow)
+
+        j_own, a_own = own(j), own(act)[:, None]
+        z = col_precond(V[cols, j_own].reshape((cols.numel(),) + b.shape[1:]))
+        mz = col_matvec(z).reshape(-1, N)
+        w_col = mz.contiguous() if narrow is None else w_in.index_copy_(0, narrow, mz)
         # CGS2 against rows 0..j: w, h = [h1; h2], norms = |w|^2 before, after
-        w, hh, norms = cuda_kernels.gram_schmidt(V, matvec(z).reshape(B, N).contiguous(), j,
-                                                 act, acc)
+        w, hh, norms = cuda_kernels.gram_schmidt(V, w_col, j, act, acc)
         w_entry, hj1 = torch.sqrt(norms).to(dt).unbind(1)
         h = (hh[:, 0] + hh[:, 1]).to(dt)  # (B, m+1)
-        v_next = w / torch.clamp(hj1, min=tiny)[:, None]
+        v_next = own(w) / torch.clamp(own(hj1), min=tiny)[:, None]
         j1, jz = torch.clamp(j + 1, max=m), torch.clamp(j, max=m - 1)  # in range when frozen
+        j1_own, jz_own = own(j1), own(jz)
+        V[cols, j1_own] = torch.where(a_own, v_next, V[cols, j1_own])
+        Z[cols, jz_own] = torch.where(a_own, z.reshape(-1, N), Z[cols, jz_own])
         a = act[:, None]
-        V[pairs, j1] = torch.where(a, v_next, V[pairs, j1])
-        Z[pairs, jz] = torch.where(a, z.reshape(B, N), Z[pairs, jz])
 
         # the new column [h with position j+1 := hj1], the earlier rotations
         col = torch.where(rows == (j + 1)[:, None], hj1[:, None], h)
@@ -533,24 +566,31 @@ def fgmres(
                 (k_new < max_iterations) & (res_keep > tol) & ~stalled_new)
 
     outer = (k < max_iterations) & (res_norm > tol) & ~stalled
-    going = _any(outer)
+    going = _count(outer)
     while going:
         r = b - matvec(x)
         beta = torch.sqrt(dot(r, r)).to(dt)
-        V.zero_()
+        for buf in (V, Z):  # the rows of pairs that have stopped are never read
+            if narrow is None:
+                buf.zero_()
+            else:
+                buf.index_fill_(0, narrow, 0.0)
         V[:, 0] = r.reshape(B, N) / torch.clamp(beta, min=tiny)[:, None]
-        for buf in (Z, R, rot0, rot1, g, j, brk, rmax):
+        for buf in (R, rot0, rot1, g, j, brk, rmax):
             buf.zero_()
         g[:, 0] = beta
         est.copy_(beta)
         k_cycle.copy_(k)
         act.copy_(outer & (est > tol) & (k < max_iterations))
+        width = B if narrow is None else narrow.numel()
         t = 0
         while True:  # a cycle ends by its restart length at the latest
-            for _ in range(min(CHUNK, m - t)):
+            steps = min(CHUNK, m - t)
+            for _ in range(steps):
                 step()
+            observability.add_count("krylov/slot_columns", width * steps)
             t += CHUNK
-            if t >= m or not _any(act):
+            if t >= m or not _count(act):
                 break
 
         x_new, res_new = solution_for(j)
@@ -561,7 +601,7 @@ def fgmres(
         after, outer_next = restarted(x_new, res_new)
         observability.add_count("krylov/host_syncs")
         with observability.host_wait():
-            any_disagree, going = torch.stack([disagree.any(), outer_next.any()]).tolist()
+            any_disagree, going = torch.stack([disagree.sum(), outer_next.sum()]).tolist()
         if any_disagree:
             # evaluated for the whole batch, taken only where a pair disagrees
             for xc, rc in (solution_for((j + 1) // 2), solution_for((j + 3) // 4)):
@@ -569,7 +609,18 @@ def fgmres(
                 x_new = torch.where(_bc(take, x), xc, x_new)
                 res_new = torch.where(take, rc, res_new)
             after, outer_next = restarted(x_new, res_new)
-            going = _any(outer_next)
+            going = _count(outer_next)
         (x, k, res_norm, stalled), outer = after, outer_next
+
+        if subset is not None and 1 <= going <= width // 2:
+            # the going pairs, in order, found on the card without a sync
+            narrow = torch.argsort((~outer).to(torch.int8), stable=True)[:going]
+            col_matvec, col_precond = subset(narrow)
+            if col_precond is None:
+                col_precond = lambda r: r  # noqa: E731
+            if w_in is None:
+                w_in = torch.zeros((B, N), dtype=dt, device=dev)
+            step = _Step(column, dev)
+            observability.add_count("krylov/compactions")
 
     return KrylovResult(x=x, iterations=k, residual_norm=res_norm, converged=res_norm <= tol)

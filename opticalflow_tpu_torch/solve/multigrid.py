@@ -402,10 +402,24 @@ def _lu_solve(lu: torch.Tensor, piv: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return x.reshape(b.shape)
 
 
-def take(h: MGHierarchy, idx: torch.Tensor, fine_matvec: Callable) -> MGHierarchy:
+def _lu_solve_rows(lu: torch.Tensor, piv: torch.Tensor, idx: torch.Tensor,
+                   b: torch.Tensor) -> torch.Tensor:
+    """:func:`_lu_solve` of the pairs ``idx`` of a batch's factors: the
+    right-hand sides (len(idx), 3, m, n) placed in their rows of the whole
+    batch, the others zero, and their rows of the solve returned."""
+    whole = b.new_zeros((lu.shape[0],) + tuple(b.shape[1:]))
+    return _lu_solve(lu, piv, whole.index_copy_(0, idx, b)).index_select(0, idx)
+
+
+def take(h: MGHierarchy, idx: torch.Tensor, fine_matvec: Callable,
+         coarse_in_batch: bool = False) -> MGHierarchy:
     """The hierarchy of the pairs ``idx`` of ``h`` alone, on ``fine_matvec``
     (the fine operator of those pairs) and ``h``'s route: the same levels,
-    sliced, with no probing or factoring."""
+    sliced, with no probing or factoring.  ``coarse_in_batch``: the coarsest
+    solve runs on ``h``'s whole batch (:func:`_lu_solve_rows`), whose
+    batched LU solve sums each pair in the order it takes at that batch's
+    size, so that every stage gives each pair of ``idx`` the bits it gets
+    in ``h``; the levels above are per pixel and need no such care."""
     fine = h.levels[0]
     levels = [MGLevel(fine_matvec, fine.binv.index_select(0, idx), fine.shape)]
     if h.route == "kernels":
@@ -413,6 +427,9 @@ def take(h: MGHierarchy, idx: torch.Tensor, fine_matvec: Callable) -> MGHierarch
     for level in h.levels[1:]:
         levels.append(_probed_level(h.route, level.stencil.index_select(0, idx),
                                     level.binv.index_select(0, idx), level.shape))
+    if coarse_in_batch:
+        return MGHierarchy(tuple(levels), functools.partial(_lu_solve_rows, *h.coarse_lu, idx),
+                           h.coarse_lu, h.route)
     lu, piv = (t.index_select(0, idx) for t in h.coarse_lu)
     return MGHierarchy(tuple(levels), functools.partial(_lu_solve, lu, piv), (lu, piv), h.route)
 

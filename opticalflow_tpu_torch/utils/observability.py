@@ -27,7 +27,10 @@ What the port records, and where (the benchmark's readers in
 * span ``krylov/capture``: each CUDA graph capture's host time;
   counters ``krylov/host_syncs`` (the Krylov loops' and the refinement
   loop's reads of the card) and ``krylov/graph_captures``, see
-  solve.krylov;
+  solve.krylov; FGMRES's counters ``krylov/compactions`` (each restart
+  that narrows its columns to the pairs still going) and
+  ``krylov/slot_columns`` (the pairs each Arnoldi column step runs on,
+  summed over the steps);
 * counters ``refinement/steps`` (the refinement loop's reads of its active
   set) and ``refinement/retakes`` (its re-slices of the operators and
   hierarchy to a smaller active set);

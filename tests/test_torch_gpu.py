@@ -1127,3 +1127,74 @@ def test_refinement_subsets_each_capture_and_replay(monkeypatch):
     assert torch.equal(u, u_e) and info["converged"].all()
     for key in info:
         assert torch.equal(info[key], info_e[key]), key
+
+
+@pytest.mark.gpu
+def test_fgmres_compacted_batches_each_capture_and_replay(monkeypatch):
+    """A four-pair FGMRES solve (``method='gmres'``, restart 4) whose pairs
+    stop apart: the main solve narrows its columns to the pairs still going
+    at its restarts, and its first step and each narrowed step capture one
+    graph and replay it; the whole solve equals the same solve with its
+    steps uncaptured, and the same solve with no FGMRES solve given
+    ``subset``, bit for bit
+    (the narrowed operators, B1, B5 and B6, are per pixel, and B7, the norms
+    and the batched LU solve still run on the whole batch)."""
+    from opticalflow_tpu_torch.flow import variational
+    from opticalflow_tpu_torch.solve import krylov
+    from opticalflow_tpu_torch.utils import observability
+
+    dev = _cuda()
+    movie, _ = make_translating_blob_movie(n_frames=2, dimension=40, width=20.0, sigma=3.0,
+                                           v_x=0.15, v_y=0.1)
+    movie = torch.from_numpy((movie * 100.0).astype(np.float32)).to(dev)
+    prev, cur = movie[:1].expand(4, 40, 40), movie[1:].expand(4, 40, 40)
+    a_s = torch.tensor([100.0, 300.0, 3000.0, 1e5], device=dev)
+    a_r = torch.tensor([300.0, 1000.0, 100.0, 1e5], device=dev)
+    steps, main, calls, fgmres = [], [], [], krylov.fgmres
+
+    class Recorded(krylov._Step):
+        def __init__(self, fn, device):
+            super().__init__(fn, device)
+            self.calls = 0
+            steps.append(self)
+
+        def __call__(self):
+            self.calls += 1
+            super().__call__()
+
+    def recorded(matvec, b, subset=None, drop_subset=False, **kw):
+        first, before = len(steps), observability.counts().get("krylov/compactions", 0)
+        res = fgmres(matvec, b, subset=None if drop_subset else subset, **kw)
+        if not calls:  # the main solve
+            main.append((res, steps[first:],
+                         observability.counts().get("krylov/compactions", 0) - before))
+        calls.append(subset is not None)
+        return res
+
+    monkeypatch.setattr(krylov, "_Step", Recorded)
+    monkeypatch.setattr(krylov, "fgmres", recorded)
+
+    def solve():
+        calls.clear()
+        return variational.solve_frame_pair(prev, cur, torch.zeros(3, 40, 40, device=dev), a_s,
+                                            a_r, method="gmres", gmres_restart=4)
+
+    u, info = solve()
+    assert len(calls) > 1 and all(calls)  # the main and the correction solves
+    (res, narrowed, compactions), = main
+    assert compactions >= 1 and len(narrowed) == compactions + 1
+    assert all(s.graph is not None and s.calls >= 2 for s in narrowed), [s.calls for s in narrowed]
+    assert len(set(res.iterations.tolist())) > 1
+    with krylov._uncaptured():
+        eager = solve()
+    assert all(s.graph is None for s in main[1][1])
+    monkeypatch.setattr(krylov, "fgmres",
+                        lambda *args, **kw: recorded(*args, drop_subset=True, **kw))
+    whole = solve()
+    assert len(main[2][1]) == 1 and main[2][2] == 0
+    for other, (u_o, info_o) in ((main[1][0], eager), (main[2][0], whole)):
+        for field in krylov.KrylovResult._fields:
+            assert torch.equal(getattr(res, field), getattr(other, field)), field
+        assert torch.equal(u, u_o)
+        for key in info:
+            assert torch.equal(info[key], info_o[key]), key

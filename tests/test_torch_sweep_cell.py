@@ -276,7 +276,7 @@ def test_the_benchmark_lists_the_cell_and_its_metrics():
         "sweep.wasted_share", "sweep.cell_iterations", "sweep.unconverged_share",
         "multigrid.device_ms_per_pair", "matvec.device_ms_per_pair",
         "refinement.device_ms_per_pair", "kernels.launches_per_pair",
-        "krylov.host_syncs_per_pair", "device.idle_share"}
+        "krylov.host_syncs_per_pair", "device.idle_share", "krylov.slot_columns_per_pair"}
     config = next(c for c in bench["configs"] if c["name"] == CONFIG)
     assert config["reduced"] == files.config(CONFIG)["reduced"]
     traffic = files.traffic(MIX)

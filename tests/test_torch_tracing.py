@@ -209,6 +209,19 @@ def test_the_benchmark_lists_each_new_metric_in_its_cells():
     assert sum(n.split(".sequential")[0] in EXPECTED for n in per_layer) == 18
 
 
+def test_slot_columns_reader_reads_its_counter_or_nothing():
+    """FGMRES's column steps a pair, counted for every slot of the batch
+    (``krylov/slot_columns``); None at a program without the counter. It
+    moves ``pairs_per_s`` in the two cells that batch FGMRES solves."""
+    read = files.metric_reader("krylov.slot_columns_per_pair")
+    assert read.__code__.co_filename.endswith("metrics/krylov.slot_columns_per_pair.py")
+    assert read({"pairs": 4, "counters": {"krylov/slot_columns": 600}}) == 150.0
+    assert read({"pairs": 4, "counters": {"krylov/host_syncs": 8}}) is None
+    m = {m["name"]: m for m in files.benchmark()["per_layer"]}["krylov.slot_columns_per_pair"]
+    assert (m["workloads"], m["moves"], m["layer"]) == (
+        ["actin512_twopass", "sweep512_grid20"], "pairs_per_s", "krylov")
+
+
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the sync debug mode reports the card's syncs")
