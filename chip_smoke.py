@@ -157,7 +157,8 @@ on operands left in L2) and cold (``cold_ms``, the L2 evicted before every
 launch), the plain version's (``plain_ms``), both per back-to-back call
 (``call_ms``, ``plain_call_ms``), the least time the card could take
 (``bound_ms``: the larger of the bytes moved over 3.35 TB/s and the
-operations over 67 TFLOP/s of float32, ``bound_by``), and ``library_ms``
+operations over 67 TFLOP/s of float32, ``bound_by``; both from
+``utils/cuda_timing.py``), and ``library_ms``
 (B6's R y and P e: ``F.conv2d`` / ``F.conv_transpose2d``; null for the
 others: no single PyTorch call computes the EL stencil, the df32
 residual, a block-Jacobi sweep or a residual with its transfer), its
@@ -286,37 +287,22 @@ def write_pgm_folder(folder, movie):
             f.write(frame.astype(">u2").tobytes())
 
 
-def bound(N, K, m, n, lines=False):
-    """(bound_ms, bound_by) of one kernel call on N frame blocks of (m+2,
-    n+2) and K field stacks of (m, n) each: every input read once (I,
-    scalars, the field planes and, with ``lines``, each stack's four halo
-    lines, 2 (n + 2) + 2 m values a plane), every output plane written
-    once, over the card's memory rate; the stencil's operations over its
-    float32 rate."""
-    from opticalflow_tpu_torch.utils.cuda_timing import F32_FLOPS_PER_S, HBM_BYTES_PER_S
-    from opticalflow_tpu_torch.utils.kernel_ab import FLOPS_PER_PIXEL
-
-    halo = 2 * (n + 2) + 2 * m if lines else 0
-    nbytes = 4 * (N * (m + 2) * (n + 2) + 2 * N + 3 * N * K * (2 * m * n + halo))
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = FLOPS_PER_PIXEL * N * K * m * n / F32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def time_kernel(entry, label, kernel_fn, plain_fn, args, shape, card, bounds=None):
+def time_kernel(entry, label, kernel_fn, plain_fn, args, shape, card, work=None):
     """Fill ``entry`` with the timing keys of a kernel at one shape: device
     times of the kernel warm (``ms``: its operands left in L2 where they
     fit) and cold (``cold_ms``: L2 evicted before every launch), of its
-    plain version, per-call times of both, and its bound (``bounds``, or
-    :func:`bound` of ``shape``)."""
-    from opticalflow_tpu_torch.utils.cuda_timing import call_ms, device_ms
+    plain version, per-call times of both, and its bound
+    (``cuda_timing.bound`` of ``work``, its (bytes, operations); by default
+    B1-B3's ``el_matvec_work`` at ``shape``)."""
+    from opticalflow_tpu_torch.utils.cuda_timing import bound, call_ms, device_ms, el_matvec_work
 
     entry["ms"] = device_ms(lambda: kernel_fn(*args))
     entry["cold_ms"] = device_ms(lambda: kernel_fn(*args), cold=True)
     entry["plain_ms"] = device_ms(lambda: plain_fn(*args), launches=10)
     entry["call_ms"] = call_ms(lambda: kernel_fn(*args), 50)
     entry["plain_call_ms"] = call_ms(lambda: plain_fn(*args), 10)
-    entry["bound_ms"], entry["bound_by"] = bounds or bound(*shape)
+    seconds, entry["bound_by"] = bound(*(work or el_matvec_work(*shape)))
+    entry["bound_ms"] = seconds * 1e3
     entry["library_ms"] = None  # no single PyTorch call computes the EL stencil
     print(f"{label} timed at N={shape[0]} K={shape[1]} {shape[2]}x{shape[3]}"
           f"{' with halo lines' if shape[4:] and shape[4] else ''}: device "
@@ -602,16 +588,6 @@ def check_extended_kernel(movie, large, dev, card, entry):
                                          "windows route")
 
 
-def bound_df32(B, m, n, P, residual):
-    """(bound_ms, bound_by) of one B4 call on B pairs of (m, n) with P
-    planes: ``df32_cases.bound``, each operand byte once over the card's
-    memory rate or ~1,250 operations a pixel over its float32 rate."""
-    from opticalflow_tpu_torch.utils import df32_cases
-
-    us, by = df32_cases.bound(B, m, n, P, residual)
-    return us * 1e-3, by
-
-
 def check_df32_kernel(movie, large, stack, dev, card, entry):
     """Phase 3's B4: the df32 residual and operator against their plain
     versions, bit for bit (the bits compared: signed zeros and NaN), in
@@ -680,6 +656,7 @@ def _check_df32_modes(ops, x_hi, x_lo, name, card, entry, timed, first):
     into ``entry`` itself when ``first``, else under ``at_path_shape``)."""
     from opticalflow_tpu_torch.ops import cuda_kernels as ck
     from opticalflow_tpu_torch.utils import df32_cases
+    from opticalflow_tpu_torch.utils.cuda_timing import df32_work, issue_ceiling
 
     B, P, m, n = ops.planes.shape
     modes = {"residual": (ck.el_residual_df32, ck.el_residual_df32_ref, (ops, x_hi, x_lo)),
@@ -701,17 +678,17 @@ def _check_df32_modes(ops, x_hi, x_lo, name, card, entry, timed, first):
         del y, y_ref
         if not timed:
             continue
-        bounds = bound_df32(B, m, n, P, mode == "residual")
+        work = df32_work(B, m, n, P, mode == "residual")
         if mode == "operator" and first:
             target = entry
         else:
             target = entry.setdefault("at_path_shape", {})[f"{mode} N={B} {m}x{n}"] = {}
         time_kernel(target, f"B4 {mode} ({name})", kernel_fn, plain_fn, args, (B, 1, m, n), card,
-                    bounds)
-        issue_us = df32_cases.issue_us(B, m, n)
-        print(f"B4 {mode} ({name}): issue ceiling {issue_us:.3f} us, "
-              f"{issue_us * 1e-3 / target['ms']:.2f} of it warm, "
-              f"{issue_us * 1e-3 / target['cold_ms']:.2f} cold  [{card}]", flush=True)
+                    work)
+        issue_ms = issue_ceiling(work[1]) * 1e3
+        print(f"B4 {mode} ({name}): issue ceiling {issue_ms * 1e3:.3f} us, "
+              f"{issue_ms / target['ms']:.2f} of it warm, "
+              f"{issue_ms / target['cold_ms']:.2f} cold  [{card}]", flush=True)
 
 
 def check_mg_kernels(dev, card, entries):
@@ -733,7 +710,7 @@ def check_mg_kernels(dev, card, entries):
     V-cycle's milliseconds and launches at the sweep's chunk, the launches
     checked against ``V_CYCLE_LAUNCHES``."""
     from opticalflow_tpu_torch.utils import mg_cases
-    from opticalflow_tpu_torch.utils.cuda_timing import device_ms
+    from opticalflow_tpu_torch.utils.cuda_timing import device_ms, mg_work
     from opticalflow_tpu_torch.utils.df32_cases import bitwise_equal
     from opticalflow_tpu_torch.utils.sweep_chunks import sweep_movie, v_cycle_costs
 
@@ -788,7 +765,7 @@ def check_mg_kernels(dev, card, entries):
                 target = entries[name].setdefault("at_path_shape", {})[f"{label} {desc}"] = {}
             time_kernel(target, f"{mg_cases.KINDS[case.kind]} {label} {case.kind}", kernel_fn,
                         plain_fn, args, (case.B, case.K, case.M, case.N), card,
-                        mg_cases.bound(case))
+                        mg_work(*case))
             library = mg_cases.library_call(case, args)
             if library is not None:
                 target["library_ms"] = device_ms(library)
@@ -815,29 +792,20 @@ def check_mg_kernels(dev, card, entries):
 GS_N, GS_PAIRS, GS_COLUMNS, GS_RESTART = 3 * 510 * 510, (1, 49), (0, 15, 31), 32
 
 
-def gs_bytes(B, N, rows, column=True):
-    """(each input byte read once and the output written once, the bytes B7
-    moves): a column reads ``rows`` rows of V and w and writes w2, in three
-    passes over the rows, w twice and w1 once, w1 and w2 written; an update
-    reads ``rows`` rows of Z and x and writes its sum.  Float32 storage."""
-    if column:
-        return 4 * B * N * (rows + 2), 4 * B * N * (3 * rows + 5)
-    return (4 * B * N * (rows + 2),) * 2
-
-
 def check_gs_kernel(dev, card, entry):
     """Phase 3's B7 (FGMRES's Gram-Schmidt and update) at the two-pass
     cell's shapes, float32 storage and float64 sums: the column against its
     plain version (max |kernel - plain| over |w|: a float32 rounding of
     the projections at most) at 1 and 49 pairs and columns 0, 15 and 31,
     each timed warm and cold beside the bound (each input byte once:
-    ``bound_ms``; the three passes' bytes printed beside it), the plain
+    ``bound_ms``; the three passes' bytes printed beside it:
+    ``cuda_timing.gram_schmidt_work``), the plain
     version, and the four ``torch.bmm`` products on V held in float64 over
     all 33 rows that the port ran before (``library_ms``, the port calls no
     bmm there now); the update at 1 and 49 pairs and 31 columns, with its
     one bmm.  The 49 pairs at column 31 fill B7's own keys."""
     from opticalflow_tpu_torch.ops import cuda_kernels as ck
-    from opticalflow_tpu_torch.utils.cuda_timing import HBM_BYTES_PER_S, device_ms
+    from opticalflow_tpu_torch.utils.cuda_timing import bound, device_ms, gram_schmidt_work
 
     acc, R, N = torch.float64, GS_RESTART + 1, GS_N
     for B in GS_PAIRS:
@@ -873,13 +841,13 @@ def check_gs_kernel(dev, card, entry):
                 target = entry
             else:
                 target = entry.setdefault("at_path_shape", {})[f"column N={B} j={col}"] = {}
-            once, passes = gs_bytes(B, N, col + 1)
+            once, passes = gram_schmidt_work(B, N, col + 1)
             time_kernel(target, f"B7 column j={col}", ck.gram_schmidt, ck.gram_schmidt_ref,
-                        (Vj, w, j, act, acc), (B, 1, N, 1), card,
-                        (once / HBM_BYTES_PER_S * 1e3, "bytes"))
+                        (Vj, w, j, act, acc), (B, 1, N, 1), card, (once, 0))
             target["library_ms"] = lib_ms
-            print(f"  three passes' bytes {passes / HBM_BYTES_PER_S * 1e3 * 1e3:.1f} us, "
-                  f"{passes / HBM_BYTES_PER_S * 1e3 / target['ms']:.2f} of it warm; the four "
+            passes_ms = bound(passes, 0)[0] * 1e3
+            print(f"  three passes' bytes {passes_ms * 1e3:.1f} us, "
+                  f"{passes_ms / target['ms']:.2f} of it warm; the four "
                   f"float64 bmm on all {R} rows {lib_ms * 1e3:.1f} us, "
                   f"{lib_ms / target['ms']:.2f}x the kernel  [{card}]", flush=True)
             del Vj
@@ -898,7 +866,7 @@ def check_gs_kernel(dev, card, entry):
         target = entry.setdefault("at_path_shape", {})[f"update N={B} cols={GS_RESTART - 1}"] = {}
         time_kernel(target, "B7 update", ck.basis_update, ck.basis_update_ref,
                     (x, y, Z, cols, acc), (B, 1, N, 1), card,
-                    (gs_bytes(B, N, GS_RESTART - 1, False)[0] / HBM_BYTES_PER_S * 1e3, "bytes"))
+                    (gram_schmidt_work(B, N, GS_RESTART - 1, False)[0], 0))
         Z64 = Z.double()
         target["library_ms"] = device_ms(
             lambda: x + torch.bmm(y.double()[:, None, :], Z64)[:, 0].float(), launches=10)

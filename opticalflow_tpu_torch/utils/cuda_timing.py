@@ -1,4 +1,4 @@
-"""Timing on the card with CUDA events (imported only where a card is).
+"""Timing on the card with CUDA events, and the work each kernel does.
 
 * :func:`call_ms`: milliseconds per call of back-to-back calls, the host's
   launch included (a call shorter than its launch measures the launch);
@@ -21,9 +21,18 @@ Both warm up first and return the median of ``rounds`` timed runs.
   call.  The profiler records every host op, so the wall, and with it the
   idle share, is somewhat larger than without it.
 
-The card's rates, from the H100 SXM data sheet, for the bounds of the
-kernels (``chip_smoke.py``, :mod:`kernel_ab`, :mod:`df32_cases`):
-``HBM_BYTES_PER_S``, ``F32_FLOPS_PER_S`` and ``F32_ISSUE_PER_S``.
+The timers need a card; the rest is plain arithmetic, which a CPU test
+holds to fixed values: the one account of what a launch of each kernel
+moves and computes, in bytes and float32 operations, from which
+``chip_smoke.py``'s ``bound_ms`` and :mod:`kernel_ab`'s bounds come:
+
+* :func:`el_matvec_work` (B1, B2, B3), :func:`df32_work` (B4),
+  :func:`mg_work` (B5, B6), :func:`gram_schmidt_work` (B7);
+* :func:`bound`: the least time of a launch, its bytes over the card's
+  memory rate or its operations over the float32 rate, whichever is
+  larger; :func:`issue_ceiling`: its operations at one issue slot each.
+
+The card's rates are from the H100 SXM data sheet.
 """
 
 from __future__ import annotations
@@ -42,6 +51,91 @@ F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores, an FMA counted as t
 # float32 instructions issued a second without fused multiply-adds:
 # 132 SMs x 128 lanes x ~1.98 GHz
 F32_ISSUE_PER_S = 33.5e12
+
+# float32 operations per output pixel of el_stencil.cuh (B1-B3)
+EL_FLOPS_PER_PIXEL = 110
+# float32 operations per interior pixel of B4, counted from its source
+# (csrc/el_df32.cu): 43 terms of 29 (two_prod 17, the small terms 4, two_sum 6, the
+# tail 2; negations are free) and the rounding of each of the three
+# channels' pairs
+DF32_FLOPS_PER_PIXEL = 43 * 29 + 3
+
+
+def bound(nbytes: int, flops: int) -> Tuple[float, str]:
+    """(seconds, bound_by) of a launch that moves ``nbytes`` and computes
+    ``flops`` float32 operations: its bytes over the memory rate
+    ("bytes") or its operations over the float32 rate ("operations"),
+    whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def issue_ceiling(flops: int) -> float:
+    """Seconds of ``flops`` float32 operations at one issue slot each, as
+    ``-fmad=false`` leaves them."""
+    return flops / F32_ISSUE_PER_S
+
+
+def el_matvec_work(N: int, K: int, m: int, n: int, lines: bool = False) -> Tuple[int, int]:
+    """(bytes, operations) of one B1, B2 or B3 launch on N frame blocks of
+    (m+2, n+2) and K field stacks of (m, n) each: I and the scalars read
+    once, the field planes and, with ``lines``, each stack's four halo
+    lines (2 (n + 2) + 2 m values a plane) read once, every output plane
+    written once; the stencil's operations on every output pixel."""
+    halo = 2 * (n + 2) + 2 * m if lines else 0
+    nbytes = 4 * (N * (m + 2) * (n + 2) + 2 * N + 3 * N * K * (2 * m * n + halo))
+    return nbytes, EL_FLOPS_PER_PIXEL * N * K * m * n
+
+
+def df32_work(B: int, m: int, n: int, P: int, residual: bool) -> Tuple[int, int]:
+    """(bytes, operations) of one B4 launch on B pairs of (m, n) with P
+    planes: the P coefficient planes, the per-pair scalars and x read once,
+    y written once, and in residual mode x_lo and the two rhs planes read
+    too."""
+    planes = P + 3 + 3 + (9 if residual else 0)
+    return 4 * (B * m * n * planes + 6 * B), DF32_FLOPS_PER_PIXEL * B * m * n
+
+
+def mg_work(kind: str, B: int, K: int, M: int, N: int) -> Tuple[int, int]:
+    """(bytes, operations) of one B5 or B6 launch of ``kind`` (a key of
+    ``mg_cases.KINDS``) on B pairs of K probes, fine grid (M, N): S and
+    the block inverse read once a pair, fields once a probe, the output
+    written once.  Operations a pixel: the stencil 27 products and 26 sums
+    for each of 3 fields, the block row 5 for each, the damped update 2.
+    A fused stage moves what its two stages move less what stays on chip:
+    x1 is written once and read by no one, S read once."""
+    fine, coarse = B * K * M * N, B * K * ((M + 1) // 2) * ((N + 1) // 2)
+    stencil, pairs = 3 * 53, B * M * N
+    sweep = stencil + 3 + 15 + 6
+    floats, ops = {
+        "sweep-residual-restrict": (99 * pairs + 3 * coarse,
+                                    sweep * pairs + (stencil + 3) * fine + 24 * coarse),
+        "prolong-add-sweep": (99 * pairs + 3 * coarse, 12 * fine + sweep * pairs),
+        "sweep": (99 * pairs, sweep * pairs),
+        "zero guess": (15 * pairs, 18 * pairs),
+        "fine": (21 * pairs, 24 * pairs),
+        "apply": (81 * pairs + 6 * fine, stencil * fine),
+        "residual-restrict": (81 * pairs + 6 * fine + 3 * coarse,
+                              (stencil + 3) * fine + 24 * coarse),
+        "restrict b - y": (6 * fine + 3 * coarse, 3 * fine + 24 * coarse),
+        "restrict y": (3 * fine + 3 * coarse, 24 * coarse),
+        "restrict S x": (81 * pairs + 3 * fine + 3 * coarse, stencil * fine + 24 * coarse),
+        "prolong-add": (6 * fine + 3 * coarse, 12 * fine),
+        "prolong": (3 * fine + 3 * coarse, 9 * fine),
+    }[kind]
+    return 4 * floats, ops
+
+
+def gram_schmidt_work(B: int, N: int, rows: int, column: bool = True) -> Tuple[int, int]:
+    """(bytes with each input read once and the output written once, the
+    bytes B7 moves) of one launch on B pairs of length N, float32 storage:
+    a column reads ``rows`` rows of V and w and writes w2, in three passes
+    over the rows, w twice and w1 once, w1 and w2 written; an update reads
+    ``rows`` rows of Z and x and writes its sum.  Its sums are float64, so
+    its bound is its bytes alone."""
+    if column:
+        return 4 * B * N * (rows + 2), 4 * B * N * (3 * rows + 5)
+    return (4 * B * N * (rows + 2),) * 2
 
 
 def call_ms(fn: Callable, reps: int, rounds: int = 5) -> float:

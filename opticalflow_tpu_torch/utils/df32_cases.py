@@ -11,10 +11,7 @@ on the card (chip_smoke.py phase 3, :mod:`kernel_ab`, the card tests):
   ``overflow``, some field heads of 2^126 whose Dekker split overflows, so
   that NaN reaches the outputs.
 
-And the work B4 does at a shape: its bound (:func:`bound`: bytes over the
-memory rate or operations over the float32 rate; chip_smoke.py's
-``bound_ms`` and :mod:`kernel_ab`'s) and its issue ceiling (the same
-operations one issue slot each, as ``-fmad=false`` leaves them).
+The work B4 does at a shape is :func:`cuda_timing.df32_work`.
 """
 
 from __future__ import annotations
@@ -24,32 +21,6 @@ import torch
 
 from opticalflow_tpu_torch.ops import cuda_kernels as ck
 from opticalflow_tpu_torch.ops import elop
-from opticalflow_tpu_torch.utils.cuda_timing import (F32_FLOPS_PER_S, F32_ISSUE_PER_S,
-                                                     HBM_BYTES_PER_S)
-
-# float32 operations per interior pixel of B4, counted from its source
-# (csrc/el_df32.cu): 43 terms of 29 (two_prod 17, the small terms 4, two_sum 6, the
-# tail 2; negations are free) and the rounding of each of the three
-# channels' pairs
-DF32_FLOPS_PER_PIXEL = 43 * 29 + 3
-
-
-def bound(B: int, m: int, n: int, P: int, residual: bool):
-    """(bound_us, bound_by) of one B4 call on B pairs of (m, n) with P
-    planes: the P coefficient planes, the per-pair scalars and x read once,
-    y written once, and in residual mode x_lo and the two rhs planes read
-    too, over the memory rate ("bytes"); or its operations over the float32
-    rate ("operations"), whichever is larger."""
-    planes = P + 3 + 3 + (9 if residual else 0)
-    t_bytes = 4 * (B * m * n * planes + 6 * B) / HBM_BYTES_PER_S * 1e6
-    t_ops = DF32_FLOPS_PER_PIXEL * B * m * n / F32_FLOPS_PER_S * 1e6
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def issue_us(B: int, m: int, n: int) -> float:
-    """The issue ceiling of one B4 call, in us: its operations at one
-    issue slot each."""
-    return DF32_FLOPS_PER_PIXEL * B * m * n / F32_ISSUE_PER_S * 1e6
 
 
 def pack_pairs(prev, cur, alphas, dy_mode: str, device) -> ck.DF32Operands:

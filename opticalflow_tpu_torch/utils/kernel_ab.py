@@ -26,10 +26,10 @@ every launch through the wrappers' checks (CUDA-graph replays,
 :func:`cuda_timing.device_ms`), warm (operands in L2 where they fit) and
 cold (L2 evicted before every launch), in turns other, this, this, other,
 for ``--rounds`` rounds.  Prints one line per case with the median of each
-build, their ratio, the call's bound (bytes over 3.35 TB/s or operations
-over 67 TFLOP/s of float32, whichever is larger; the share of it each build
-reaches; for B4 also the issue ceiling, its operations one issue slot
-each, and each B4 build's registers, spills and resident warps an SM) and
+build, their ratio, the call's bound (:func:`cuda_timing.bound` of the
+kernel's work; the share of it each build reaches; for B4 also the issue
+ceiling, its operations one issue slot each, and each B4 build's
+registers, spills and resident warps an SM) and
 the card's name and power limit.  Exits non-zero when an output is not
 bitwise equal to the other build's (bits compared for B4 and B6: signed
 zeros and NaN).  ``--kernels`` picks the kernels (default B1-B4).
@@ -60,10 +60,9 @@ from opticalflow_tpu_torch.ops import elop
 from opticalflow_tpu_torch.parallel import spmd
 from opticalflow_tpu_torch.parallel.mesh import make_mesh
 from opticalflow_tpu_torch.utils import df32_cases
-from opticalflow_tpu_torch.utils.cuda_timing import (F32_FLOPS_PER_S, HBM_BYTES_PER_S,
-                                                     device_ms)
+from opticalflow_tpu_torch.utils.cuda_timing import (bound, device_ms, df32_work,
+                                                     el_matvec_work, issue_ceiling, mg_work)
 
-FLOPS_PER_PIXEL = 110  # float32 operations per output pixel of el_stencil.cuh
 # B3's C entry point before it read tiles in place: pre-extended blocks,
 # the argument types of B1's
 LEGACY_B3 = ("el_matvec_extended", ck.ENTRY_POINTS["el_matvec.cu"][1], ())
@@ -96,20 +95,6 @@ def _operands(pairs: int, K: int, m: int, dev):
     shape = (pairs, 3, m, m) if K == 1 else (pairs, K, 3, m, m)
     u = torch.randn(shape, device=dev, generator=torch.Generator(dev).manual_seed(7))
     return I, scalars, u
-
-
-def bound_us(pairs: int, K: int, m: int, form: str = "pairs") -> float:
-    """The least time of the call, in us: the bytes it must move (I blocks,
-    scalars, the field planes and, in the lines form, the halo lines read
-    once, the output planes written once) over the card's memory rate, or
-    its operations over the float32 rate, whichever is larger."""
-    tx, ty = TILES.get(form, (1, 1))
-    mt, nt = m // tx, m // ty
-    N = pairs * (1 if form == "lines" else tx * ty)  # frame blocks of the call
-    pixels = N * mt * nt
-    lines = 2 * (nt + 2) + 2 * mt if form == "lines" else 0
-    nbytes = 4 * (N * (mt + 2) * (nt + 2) + 2 * N + 3 * K * (2 * pixels + N * lines))
-    return max(nbytes / HBM_BYTES_PER_S, FLOPS_PER_PIXEL * K * pixels / F32_FLOPS_PER_S) * 1e6
 
 
 def rel_diff_per_field(y: torch.Tensor, ref: torch.Tensor):
@@ -235,7 +220,10 @@ def matvec_ab(libraries, rounds: int, card: str, dev, labels) -> bool:
         del outs
         med = _timed_ab(calls, 100 if pairs * K * m * m < 3e7 else 20, rounds)
         shape = f"{pairs} x {m}x{m}" if form == "pairs" else f"{m}x{m} {form}"
-        _report(f"{label} {shape} K={K}", same, rel, bound_us(pairs, K, m, form), med, card)
+        tx, ty = TILES.get(form, (1, 1))
+        blocks = pairs * (1 if form == "lines" else tx * ty)  # frame blocks of the call
+        b = bound(*el_matvec_work(blocks, K, m // tx, m // ty, form == "lines"))[0] * 1e6
+        _report(f"{label} {shape} K={K}", same, rel, b, med, card)
         del I, scalars, u, calls
         torch.cuda.empty_cache()
     return ok
@@ -283,9 +271,9 @@ def df32_ab(libraries, rounds: int, card: str, dev) -> bool:
                 ok &= same
                 del outs
                 med = _timed_ab(calls, 20 if pairs * m * m > 1e6 else 100, rounds)
+                work = df32_work(pairs, m, m, P, mode == "residual")
                 _report(f"B4 {mode} {dy_mode} (P = {P}) {pairs} x {m}x{m} ({path})", same, rel,
-                        df32_cases.bound(pairs, m, m, P, mode == "residual")[0], med, card,
-                        df32_cases.issue_us(pairs, m, m))
+                        bound(*work)[0] * 1e6, med, card, issue_ceiling(work[1]) * 1e6)
                 del calls
             del ops, x_hi, x_lo
             torch.cuda.empty_cache()
@@ -399,7 +387,7 @@ def b6_ab(libraries, legacy: bool, rounds: int, card: str, dev) -> bool:
             size = case.B * case.K * case.M * case.N
             med = _timed_ab(calls, 20 if size > 3e7 else 100, rounds)
             _report(f"B6 {case.kind} {path} {case.B} x K={case.K} {case.M}x{case.N}", same, rel,
-                    mg_cases.bound(case)[0] * 1e3, med, card)
+                    bound(*mg_work(*case))[0] * 1e6, med, card)
             del calls, args
             torch.cuda.empty_cache()
     return ok

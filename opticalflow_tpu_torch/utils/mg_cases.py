@@ -12,12 +12,12 @@ for their checks and timings on the card (chip_smoke.py phase 3):
   (K = 1), and :func:`probe_cases` the setup's transfers at K = 27;
 * :func:`operands`: the wrapper, its plain version and random operands of
   one case (signed zeros among the field values);
-* :func:`bound`: the least time of one call: every operand byte once over
-  the memory rate, or the operations over the float32 rate;
 * :func:`library_call`: the one PyTorch call that computes the same
   function as a B6 instance, where there is one: R y (``F.conv2d`` with
   the bilinear kernel) and P e (``F.conv_transpose2d``); the port never
   calls it.
+
+The work of one call of a case is :func:`cuda_timing.mg_work` of it.
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ import torch
 import torch.nn.functional as F
 
 from opticalflow_tpu_torch.ops import cuda_kernels as ck
-from opticalflow_tpu_torch.utils.cuda_timing import F32_FLOPS_PER_S, HBM_BYTES_PER_S
 
 # each path's (pairs, fine interior): the 256x256 bench's 11 pairs batched,
 # the sweep's chunk of 150 cells of 126x126, the command line's and the
@@ -139,40 +138,6 @@ def operands(case: Case, device, seed: int):
                               (S, binv, x, field(coarse), b, DAMP)),
     }
     return table[kind]
-
-
-def bound(case: Case):
-    """(bound_ms, bound_by) of one call of ``case``: the operands it must
-    read (S and the block inverse once a pair, fields once a probe) and the
-    output it writes, once each, over the memory rate ("bytes"), or its
-    float32 operations over the float32 rate ("operations"), whichever is
-    larger.  Operations a pixel: the stencil 27 products and 26 sums for
-    each of 3 fields, the block row 5 for each, the damped update 2.  A
-    fused stage moves what its two stages move less what stays on chip:
-    x1 is written once and read by no one, S read once."""
-    kind, B, K, M, N = case
-    fine, coarse = B * K * M * N, B * K * ((M + 1) // 2) * ((N + 1) // 2)
-    stencil, pairs = 3 * 53, B * M * N
-    sweep = stencil + 3 + 15 + 6
-    floats, ops = {
-        "sweep-residual-restrict": (99 * pairs + 3 * coarse,
-                                    sweep * pairs + (stencil + 3) * fine + 24 * coarse),
-        "prolong-add-sweep": (99 * pairs + 3 * coarse, 12 * fine + sweep * pairs),
-        "sweep": (99 * pairs, sweep * pairs),
-        "zero guess": (15 * pairs, 18 * pairs),
-        "fine": (21 * pairs, 24 * pairs),
-        "apply": (81 * pairs + 6 * fine, stencil * fine),
-        "residual-restrict": (81 * pairs + 6 * fine + 3 * coarse,
-                              (stencil + 3) * fine + 24 * coarse),
-        "restrict b - y": (6 * fine + 3 * coarse, 3 * fine + 24 * coarse),
-        "restrict y": (3 * fine + 3 * coarse, 24 * coarse),
-        "restrict S x": (81 * pairs + 3 * fine + 3 * coarse, stencil * fine + 24 * coarse),
-        "prolong-add": (6 * fine + 3 * coarse, 12 * fine),
-        "prolong": (3 * fine + 3 * coarse, 9 * fine),
-    }[kind]
-    t_bytes = 4 * floats / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def library_call(case: Case, args) -> Optional[Callable[[], torch.Tensor]]:
