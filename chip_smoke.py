@@ -46,6 +46,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    49 pairs of 3 x 510x510 (columns 0, 15 and 31 of restart 32), each
    timed warm and cold beside its bound, its plain version and the four
    float64 ``torch.bmm`` products the port ran before (``library_ms``);
+   then FGMRES's Givens rotations and column bookkeeping, kernel B8, bit
+   for bit its plain version at 1, 20 and 49 pairs (restart 32, column
+   31), timed warm and cold beside its bound and its plain version;
 4. the 256x256 path once warm and once timed: ``variational_optical_flow``
    on the bench movie (13 frames of 256x256, 12 pairs, two-pass warm
    start, alpha_s = alpha_r = 1000), with every kernel's counters set to 0
@@ -150,7 +153,9 @@ launches in each path's run (``launches_by_path``) and their sum
 (``launches``); its largest error against its plain version; at its timed
 shape (B1 and B2: 11 pairs of 254x254; B3: the 1022x1022 interior as one
 tile; K = 1; B4: the operator at 11 pairs of 254x254; B5: the sweep and
-B6: the sweep-residual-restrict on the sweep's level 1, 150 x 63x63), its
+B6: the sweep-residual-restrict on the sweep's level 1, 150 x 63x63; B8:
+49 pairs at column 31 of restart 32, its state restored before each
+launch and the restore's own time subtracted), its
 device time per
 launch warm (``ms``, CUDA-graph replays
 on operands left in L2) and cold (``cold_ms``, the L2 evicted before every
@@ -168,10 +173,10 @@ for B4 also its spill bytes (``spill_bytes``, null likewise) and its
 resident warps an SM per mode (``warps_per_sm``); the same timing keys at
 every other shape a path launches: B1 under ``at_bench_shape`` (K = 27),
 ``at_large_shape``, ``at_sweep_shape`` and ``at_cli_shape``, B2 under
-``at_bench_shape`` and ``at_large_shape``, B3-B6 under ``at_path_shape``
+``at_bench_shape`` and ``at_large_shape``, B3-B8 under ``at_path_shape``
 (B3: each operand form and K; B4: each mode and shape; B5: each path's
 timed launches; B6: every instance at each path's level 0 and 1, and the
-setup's transfers).
+setup's transfers; B7: each column and update; B8: 1 and 20 pairs).
 The last line is ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
 
@@ -374,6 +379,8 @@ KERNELS = {
                     "opticalflow_tpu/solve/multigrid.py:77"),
     "gram_schmidt": ("B7", "opticalflow_tpu_torch/csrc/krylov_gs.cu",
                      "opticalflow_tpu/solve/krylov.py:374"),
+    "arnoldi_givens": ("B8", "opticalflow_tpu_torch/csrc/krylov_givens.cu",
+                       "opticalflow_tpu/solve/krylov.py:408"),
 }
 
 
@@ -876,6 +883,102 @@ def check_gs_kernel(dev, card, entry):
         torch.cuda.empty_cache()
 
 
+# B8's shapes: the sweep's narrowed columns (one pair), its chunk (20) and
+# the two-pass cell's batch (49), restart 32, every pair at the last column
+# (the longest chain of rotations)
+GIVENS_PAIRS, GIVENS_RESTART = (1, 20, 49), 32
+
+
+def _givens_state(B, m, dev, seed):
+    """A column's operands of B8 on the card, every pair active at column
+    m - 1: float64 dots and norms, float32 rotations of random angles."""
+    import math
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    theta = torch.rand(B, m, generator=gen, device=dev) * (2 * math.pi)
+    c, s = torch.cos(theta), torch.sin(theta)
+    hh = torch.randn(B, 2, m + 1, generator=gen, device=dev, dtype=torch.float64)
+    norms = torch.stack([(hh[:, 0] ** 2).sum(1) + 5.0,
+                         torch.rand(B, generator=gen, device=dev, dtype=torch.float64) + 0.1], 1)
+    return dict(hh=hh, norms=norms, R=torch.randn(B, m + 1, m, generator=gen, device=dev),
+                rot0=torch.stack([c, -s], 2), rot1=torch.stack([s, c], 2),
+                g=torch.randn(B, m + 1, generator=gen, device=dev),
+                j=torch.full((B,), m - 1, dtype=torch.int64, device=dev),
+                est=torch.ones(B, device=dev), rmax=torch.ones(B, device=dev),
+                brk=torch.zeros(B, dtype=torch.bool, device=dev),
+                act=torch.ones(B, dtype=torch.bool, device=dev),
+                k_cycle=torch.zeros(B, dtype=torch.int32, device=dev),
+                tol=torch.full((B,), 1e-9, dtype=torch.float64, device=dev))
+
+
+def _givens_call(fn, t):
+    return fn(t["hh"], t["norms"], t["R"], t["rot0"], t["rot1"], t["g"], t["j"], t["est"],
+              t["rmax"], t["brk"], t["act"], t["k_cycle"], t["tol"], 1000)
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else (
+        t.view(torch.int64) if t.dtype == torch.float64 else t)
+
+
+def check_givens_kernel(dev, card, entry):
+    """Phase 3's B8 (FGMRES's Givens rotations and column bookkeeping) at
+    1, 20 and 49 pairs, restart 32, column 31, float32 storage and float64
+    sums: every output and updated buffer bit for bit its plain version,
+    then timed.  B8 updates its state in place, so each timed call first
+    restores j and act (two copies) and the restore alone is timed and
+    subtracted: the device time warm (``ms``) and cold (``cold_ms``), the
+    plain version's (``plain_ms``, about 245 torch ops), both per
+    back-to-back call (``call_ms``, ``plain_call_ms``), and the bound
+    (``cuda_timing.arnoldi_givens_work``: bytes, some 60 KB at 49 pairs;
+    latency sets the time).  The 49 pairs fill B8's own keys."""
+    from opticalflow_tpu_torch.ops import cuda_kernels as ck
+    from opticalflow_tpu_torch.utils.cuda_timing import arnoldi_givens_work, bound, call_ms, \
+        device_ms
+
+    m = GIVENS_RESTART
+    for B in GIVENS_PAIRS:
+        kern, plain = _givens_state(B, m, dev, B), _givens_state(B, m, dev, B)
+        got = _givens_call(ck.arnoldi_givens, kern)
+        want = _givens_call(ck.arnoldi_givens_ref, plain)
+        torch.cuda.synchronize()
+        same = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
+        same &= all(torch.equal(_bits(kern[k]), _bits(plain[k])) for k in kern)
+        print(f"B8 {B} pairs, restart {m}, column {m - 1}: bitwise equal to its plain version "
+              f"{same}  [{card}]", flush=True)
+        if not same:
+            raise AssertionError(f"B8 at {B} pairs differs from its plain version")
+        j0, act0 = torch.full_like(kern["j"], m - 1), torch.ones_like(kern["act"])
+
+        def restore():
+            kern["j"].copy_(j0)
+            kern["act"].copy_(act0)
+
+        def timed(fn):
+            return lambda: (restore(), _givens_call(fn, kern))
+
+        if B == max(GIVENS_PAIRS):
+            target = entry
+        else:
+            target = entry.setdefault("at_path_shape", {})[f"N={B} restart={m} j={m - 1}"] = {}
+        target["ms"] = device_ms(timed(ck.arnoldi_givens)) - device_ms(restore)
+        target["cold_ms"] = (device_ms(timed(ck.arnoldi_givens), cold=True)
+                             - device_ms(restore, cold=True))
+        target["plain_ms"] = (device_ms(timed(ck.arnoldi_givens_ref), launches=10)
+                              - device_ms(restore, launches=10))
+        restore_ms = call_ms(restore, 50)
+        target["call_ms"] = call_ms(timed(ck.arnoldi_givens), 50) - restore_ms
+        target["plain_call_ms"] = call_ms(timed(ck.arnoldi_givens_ref), 10) - call_ms(restore, 10)
+        seconds, target["bound_by"] = bound(*arnoldi_givens_work(B, m + 1, m - 1))
+        target["bound_ms"] = seconds * 1e3
+        target["library_ms"] = None  # no PyTorch call applies a chain of Givens rotations
+        print(f"B8 timed at {B} pairs: device {target['ms'] * 1e3:.3f} us per launch warm, "
+              f"{target['cold_ms'] * 1e3:.3f} cold; plain version {target['plain_ms'] * 1e3:.1f} "
+              f"us; per call {target['call_ms']:.4f} / {target['plain_call_ms']:.4f} ms; bound "
+              f"{target['bound_ms'] * 1e3:.4f} us ({target['bound_by']})  [{card}]", flush=True)
+        del kern, plain
+
+
 def v_cycle_replays(n, card, replays=3):
     """The V-cycle at the sweep's chunk of ``n`` cells captured as a Krylov
     step is (``krylov._Step``), then replayed ``replays`` times, the counters
@@ -929,8 +1032,8 @@ def _short(mangled):
     el_df32_kernel<1,0> or restrict_kernel<1,8,32>."""
     import re
 
-    found = re.search(r"\d+((?:el|mg|gs)_\w+?kernel|sweep_restrict_kernel|restrict_kernel|"
-                      r"prolong_sweep_kernel|prolong_kernel)", mangled)
+    found = re.search(r"\d+((?:el|mg|gs)_\w+?kernel|arnoldi_givens_kernel|sweep_restrict_kernel|"
+                      r"restrict_kernel|prolong_sweep_kernel|prolong_kernel)", mangled)
     name = found.group(1) if found else mangled
     args = re.findall(r"L[a-zA-Z]\w*?E?(\d+)E", mangled[found.end():] if found else "")
     return f"{name}<{','.join(args)}>" if args else name
@@ -963,7 +1066,7 @@ def reset_counters():
     ck.LAUNCHES = ck.PLAIN_CALLS = ck.CORE_LAUNCHES = ck.CORE_PLAIN_CALLS = 0
     ck.EXT_LAUNCHES = ck.EXT_PLAIN_CALLS = ck.DF_LAUNCHES = ck.DF_PLAIN_CALLS = 0
     ck.MG_LAUNCHES = ck.MG_PLAIN_CALLS = ck.MGT_LAUNCHES = ck.MGT_PLAIN_CALLS = 0
-    ck.GS_LAUNCHES = ck.GS_PLAIN_CALLS = 0
+    ck.GS_LAUNCHES = ck.GS_PLAIN_CALLS = ck.ARN_LAUNCHES = ck.ARN_PLAIN_CALLS = 0
     observability.reset()
     torch.cuda.synchronize()
 
@@ -977,6 +1080,7 @@ def read_counters():
             "B3 plain": ck.EXT_PLAIN_CALLS, "B4": ck.DF_LAUNCHES, "B4 plain": ck.DF_PLAIN_CALLS,
             "B5": ck.MG_LAUNCHES, "B5 plain": ck.MG_PLAIN_CALLS, "B6": ck.MGT_LAUNCHES,
             "B6 plain": ck.MGT_PLAIN_CALLS, "B7": ck.GS_LAUNCHES, "B7 plain": ck.GS_PLAIN_CALLS,
+            "B8": ck.ARN_LAUNCHES, "B8 plain": ck.ARN_PLAIN_CALLS,
             "host syncs": observability.counts().get("krylov/host_syncs", 0),
             "graph captures": observability.counts().get("krylov/graph_captures", 0),
             "graph replays": GRAPH_REPLAYS[0],
@@ -986,12 +1090,15 @@ def read_counters():
 
 def bypassed(counts, kernel, graphs=True):
     """Whether a path run missed its matvec kernel, the refinement's B4 or
-    the V-cycle's B5 or B6, or ran another matvec kernel or any plain
-    version; or, with ``graphs``, replayed no Krylov step from a CUDA graph
-    (without, the exchange route's eager loop: captured one)."""
+    the V-cycle's B5 or B6, ran FGMRES's Gram-Schmidt (B7, six launches a
+    column, one an update) without B8 once a column, or ran another matvec
+    kernel or any plain version; or, with ``graphs``, replayed no Krylov
+    step from a CUDA graph (without, the exchange route's eager loop:
+    captured one)."""
     others = [k for k in ("B1", "B2", "B3") if k != kernel]
-    plains = [f"{k} plain" for k in ("B1", "B2", "B3", "B4", "B5", "B6", "B7")]
+    plains = [f"{k} plain" for k in ("B1", "B2", "B3", "B4", "B5", "B6", "B7", "B8")]
     missed = any(counts[k] == 0 for k in (kernel, "B4", "B5", "B6"))
+    missed |= (counts["B7"] > 0) != (counts["B8"] > 0) or 6 * counts["B8"] > counts["B7"]
     route = counts["graph replays"] == 0 if graphs else counts["graph captures"] > 0
     return missed or route or any(counts[k] for k in others + plains)
 
@@ -1660,6 +1767,7 @@ def main():
     check_df32_kernel(movie, large, stack[:2].astype(np.float32), dev, smi, entries["el_df32"])
     check_mg_kernels(dev, smi, entries)
     check_gs_kernel(dev, smi, entries["gram_schmidt"])
+    check_givens_kernel(dev, smi, entries["arnoldi_givens"])
     usage = kernel_usage()
     for kernel, entry in entries.items():
         used = usage.get(os.path.basename(KERNELS[kernel][1]))

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the port, their builds, wrappers and plain
 versions.
 
-Seven kernels, three of them on the stencil of ``csrc/el_stencil.cuh``:
+Eight kernels, three of them on the stencil of ``csrc/el_stencil.cuh``:
 
 * the fused reduced Euler-Lagrange matvec (``csrc/el_matvec.cu``), the
   Hopper counterpart of the TPU kernel
@@ -61,7 +61,16 @@ Seven kernels, three of them on the stencil of ``csrc/el_stencil.cuh``:
   the rows each pair uses), counters ``GS_LAUNCHES`` and
   ``GS_PLAIN_CALLS``.  The bases are stored in the field dtype and summed
   in the accumulation dtype, both taken from the call; the kernel's sums
-  differ from the plain version's by their order only.
+  differ from the plain version's by their order only;
+* FGMRES's Givens rotations and column bookkeeping
+  (``csrc/krylov_givens.cu``, B8), which has no Pallas counterpart either:
+  it replaces the ``lax.fori_loop`` of rotations and the new rotation, the
+  guards and the updates of ``opticalflow_tpu/solve/krylov.py::fgmres``
+  (:398-437), which XLA compiles into one program.  Wrapper
+  :func:`arnoldi_givens` (one launch a column), plain version
+  :func:`arnoldi_givens_ref` (the torch ops ``solve.krylov.fgmres`` ran),
+  counters ``ARN_LAUNCHES`` and ``ARN_PLAIN_CALLS``.  It is built with
+  ``-fmad=false`` and equals its plain version bit for bit.
 
 The three matvec kernels are instances of one tiled kernel
 (``csrc/el_tiles.cuh``) with their staging rule as its parameter; none has
@@ -121,6 +130,8 @@ MGT_LAUNCHES = 0  # launches by mg_residual_restrict, mg_prolong_add, mg_smooth_
 MGT_PLAIN_CALLS = 0  # calls of their plain versions
 GS_LAUNCHES = 0  # kernel launches by gram_schmidt (six a call) and basis_update (one) (B7)
 GS_PLAIN_CALLS = 0  # calls of their plain versions gram_schmidt_ref and basis_update_ref
+ARN_LAUNCHES = 0  # kernel launches by arnoldi_givens (B8), one a column step
+ARN_PLAIN_CALLS = 0  # calls of its plain version arnoldi_givens_ref
 BUILD_SECONDS = None  # wall time of this process's nvcc builds, if it built
 BUILD_LOG = ""  # nvcc's output of those builds (-Xptxas -v: registers, smem)
 
@@ -152,17 +163,22 @@ _MG_TRANSFER_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float
 _GS_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
             + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                ctypes.c_void_p])
+# B8 takes (types, hh, norms, tol, R, rot0, rot1, g, j, est, rmax, brk, act,
+# k_cycle, hj1, j1, jz, was, B, m, max_iterations, stream)
+_ARN_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 17
+             + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
 # C entry point of each source, its argument types and the flags it adds to
 # NVCC_FLAGS: B4's error-free transforms are exact only if no product and
-# sum are contracted into a fused multiply-add, and B5 and B6 equal their
-# plain versions bit for bit only so
+# sum are contracted into a fused multiply-add, and B5, B6 and B8 equal
+# their plain versions bit for bit only so
 ENTRY_POINTS = {"el_matvec.cu": ("el_matvec_reduced_fused", _PAIRS_ARGS, ()),
                 "el_matvec_plain.cu": ("el_matvec_plain_core", _PAIRS_ARGS, ()),
                 "el_matvec_ext.cu": ("el_matvec_tiled", _TILES_ARGS, ()),
                 "el_df32.cu": ("el_df32", _DF32_ARGS, ("-fmad=false",)),
                 "mg_smooth.cu": ("mg_smooth", _MG_SMOOTH_ARGS, ("-fmad=false",)),
                 "mg_transfer.cu": ("mg_transfer", _MG_TRANSFER_ARGS, ("-fmad=false",)),
-                "krylov_gs.cu": ("krylov_gs", _GS_ARGS, ())}
+                "krylov_gs.cu": ("krylov_gs", _GS_ARGS, ()),
+                "krylov_givens.cu": ("krylov_givens", _ARN_ARGS, ("-fmad=false",))}
 # queries a source's library may export beside its entry point, loaded
 # where it has them: B4's warps resident on one SM, (P, residual, int *out)
 QUERIES = {"el_df32.cu": {"el_df32_warps_per_sm": [ctypes.c_int, ctypes.c_int,
@@ -1199,13 +1215,11 @@ def _check_update(x: torch.Tensor, y: torch.Tensor, Z: torch.Tensor, cols: torch
     return B, m, N
 
 
-def _gs_launch(mode: int, acc: torch.dtype, rows: int, storage: torch.Tensor,
-               tensors: Dict[str, torch.Tensor], args: tuple, launches: int) -> None:
-    """Check a B7 call's operands on the card (one CUDA device, contiguous,
-    a (storage, ``acc``) pair B7 takes, ``rows`` and the pairs within its
-    grid) and launch it on the current stream; raises on anything the
-    kernel does not take and on a failed launch, else counts
-    ``launches``."""
+def _krylov_types(kernel: str, storage: torch.Tensor, acc: torch.dtype,
+                  tensors: Dict[str, torch.Tensor]) -> int:
+    """B7's or B8's code of (``storage``'s dtype, ``acc``) (``GS_TYPES``),
+    once every tensor is found contiguous on ``storage``'s CUDA device;
+    raises otherwise."""
     device = storage.device
     for name, t in tensors.items():
         if t.device != device or t.device.type != "cuda":
@@ -1213,14 +1227,25 @@ def _gs_launch(mode: int, acc: torch.dtype, rows: int, storage: torch.Tensor,
     _check_contiguous(**tensors)
     types = GS_TYPES.get((storage.dtype, acc))
     if types is None:
-        raise TypeError(f"B7 stores float32 or float64 and sums in float64 or the storage dtype, "
-                        f"got {storage.dtype} summed in {acc}")
+        raise TypeError(f"{kernel} stores float32 or float64 and sums in float64 or the storage "
+                        f"dtype, got {storage.dtype} summed in {acc}")
+    return types
+
+
+def _gs_launch(mode: int, acc: torch.dtype, rows: int, storage: torch.Tensor,
+               tensors: Dict[str, torch.Tensor], args: tuple, launches: int) -> None:
+    """Check a B7 call's operands on the card (one CUDA device, contiguous,
+    a (storage, ``acc``) pair B7 takes, ``rows`` and the pairs within its
+    grid) and launch it on the current stream; raises on anything the
+    kernel does not take and on a failed launch, else counts
+    ``launches``."""
+    types = _krylov_types("B7", storage, acc, tensors)
     if rows > GS_MAX_ROWS:
         raise ValueError(f"B7 takes at most {GS_MAX_ROWS} rows (restart {GS_MAX_ROWS - 1}), "
                          f"got {rows}")
     if storage.shape[0] > GS_MAX_PAIRS:
         raise ValueError(f"B7 takes at most {GS_MAX_PAIRS} pairs, got {storage.shape[0]}")
-    rc = _call(load_library()["krylov_gs"], device, 1, (mode, types) + args)
+    rc = _call(load_library()["krylov_gs"], storage.device, 1, (mode, types) + args)
     if rc != 0:
         raise RuntimeError(f"krylov_gs kernel launch failed: cudaError {rc}")
     for _ in range(launches):
@@ -1303,3 +1328,126 @@ def basis_update(x: torch.Tensor, y: torch.Tensor, Z: torch.Tensor, cols: torch.
                (Z.data_ptr(), x.data_ptr(), out.data_ptr(), cols.data_ptr(), None,
                 y.data_ptr(), None, None, None, B, m, N, C, L), 1)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel B8: FGMRES's Givens rotations and column bookkeeping.
+# ---------------------------------------------------------------------------
+
+ARN_MAX_RESTART = 64  # B8's shared arrays hold a column of a restart up to 64
+
+
+def _check_givens(hh, norms, R, rot0, rot1, g, j, est, rmax, brk, act, k_cycle, tol):
+    """(B, m) of a column's bookkeeping: R (B, m+1, m) of the field dtype,
+    rot0 and rot1 (B, m, 2), g (B, m+1), est and rmax (B,) of it; hh (B, 2,
+    m+1), norms (B, 2) and tol (B,) of one accumulation dtype; j (B,) int64,
+    brk and act (B,) bool, k_cycle (B,) int32; or ValueError."""
+    if R.dim() != 3 or R.shape[1] != R.shape[2] + 1:
+        raise ValueError(f"R must be (B, m+1, m), got {tuple(R.shape)}")
+    B, rows, m = R.shape
+    acc = hh.dtype
+    expected = (("hh", hh, (B, 2, rows), acc), ("norms", norms, (B, 2), acc),
+                ("tol", tol, (B,), acc), ("rot0", rot0, (B, m, 2), R.dtype),
+                ("rot1", rot1, (B, m, 2), R.dtype), ("g", g, (B, rows), R.dtype),
+                ("est", est, (B,), R.dtype), ("rmax", rmax, (B,), R.dtype),
+                ("j", j, (B,), torch.int64), ("brk", brk, (B,), torch.bool),
+                ("act", act, (B,), torch.bool), ("k_cycle", k_cycle, (B,), torch.int32))
+    for name, t, shape, dtype in expected:
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {shape} of {dtype}, got {tuple(t.shape)} of "
+                             f"{t.dtype}")
+    return B, m
+
+
+def arnoldi_givens_ref(hh: torch.Tensor, norms: torch.Tensor, R: torch.Tensor,
+                       rot0: torch.Tensor, rot1: torch.Tensor, g: torch.Tensor, j: torch.Tensor,
+                       est: torch.Tensor, rmax: torch.Tensor, brk: torch.Tensor,
+                       act: torch.Tensor, k_cycle: torch.Tensor, tol: torch.Tensor,
+                       max_iterations: int):
+    """Plain version of B8: the bookkeeping of Arnoldi column ``j`` of each
+    pair, as ``solve.krylov.fgmres`` ran it in torch ops.  From B7's dots
+    ``hh`` (h1, h2) and ``norms`` (|w|^2, |w2|^2): the column h = h1 + h2
+    with row j+1 set to hj1 = |w2|, the earlier rotations applied (all
+    m positions, masked to those below j), the new rotation, and, where
+    ``act``, R's column j, rotation j (rot0 (c, -s), rot1 (s, c)), g, est,
+    rmax, the guards brk (hj1 <= 3e-4 |w|, |r_jj| <= 1e-5 rmax), j + 1 and
+    the new act (also j < m, est > tol, k_cycle + j < ``max_iterations``)
+    written in place.  Returns (hj1, j1 = min(j+1, m), jz = min(j, m-1),
+    act as it was): the divisor of the next basis row, the rows of V and Z
+    the column writes, and which pairs write them."""
+    B, m = _check_givens(hh, norms, R, rot0, rot1, g, j, est, rmax, brk, act, k_cycle, tol)
+    _count("ARN_PLAIN_CALLS")
+    dt = R.dtype
+    tiny = torch.finfo(dt).tiny
+    pairs, rows = torch.arange(B, device=R.device), torch.arange(m + 1, device=R.device)
+    w_entry, hj1 = torch.sqrt(norms).to(dt).unbind(1)
+    h = (hh[:, 0] + hh[:, 1]).to(dt)  # (B, m+1)
+    j1, jz = torch.clamp(j + 1, max=m), torch.clamp(j, max=m - 1)  # in range when frozen
+    a, was = act[:, None], act.clone()
+
+    # the new column [h with position j+1 := hj1], the earlier rotations
+    col = torch.where(rows == (j + 1)[:, None], hj1[:, None], h)
+    applied = rows[None, :m] < j[:, None]
+    for i in range(m):
+        hi = col[:, i : i + 2]
+        turned = rot0[:, i] * hi[:, :1] + rot1[:, i] * hi[:, 1:]
+        col[:, i : i + 2] = torch.where(applied[:, i : i + 1], turned, hi)
+
+    # the new rotation, eliminating col[j+1]
+    a1, a2 = col[pairs, j], col[pairs, j1]
+    denom = torch.sqrt(a1 * a1 + a2 * a2)
+    safe = torch.clamp(denom, min=tiny)
+    c_new = torch.where(denom > 0, a1 / safe, 1.0)
+    s_new = torch.where(denom > 0, a2 / safe, 0.0)
+    rdd = c_new * a1 + s_new * a2
+    col[pairs, j] = rdd
+    col[pairs, j1] = torch.zeros_like(a2)
+    gj = g[pairs, j]
+    rmax_new = torch.maximum(rmax, rdd.abs())
+    brk_new = (hj1 <= 3e-4 * w_entry) | (rdd.abs() <= 1e-5 * rmax_new)
+
+    rot0[pairs, jz] = torch.where(a, torch.stack([c_new, -s_new], dim=1), rot0[pairs, jz])
+    rot1[pairs, jz] = torch.where(a, torch.stack([s_new, c_new], dim=1), rot1[pairs, jz])
+    g_j1 = torch.where(act, -s_new * gj, g[pairs, j1])
+    g[pairs, j] = torch.where(act, c_new * gj, gj)
+    g[pairs, j1] = g_j1
+    R[pairs, :, jz] = torch.where(a, col, R[pairs, :, jz])
+    j_new = j + act
+    est_new = torch.where(act, g_j1.abs(), est)
+    brk_new = torch.where(act, brk_new, brk)
+    for buf, value in zip((est, rmax, brk, j),
+                          (est_new, torch.where(act, rmax_new, rmax), brk_new, j_new)):
+        buf.copy_(value)
+    act.copy_(act & (j_new < m) & (est_new > tol) & ~brk_new
+              & (k_cycle + j_new < max_iterations))
+    return hj1, j1, jz, was
+
+
+def arnoldi_givens(hh: torch.Tensor, norms: torch.Tensor, R: torch.Tensor, rot0: torch.Tensor,
+                   rot1: torch.Tensor, g: torch.Tensor, j: torch.Tensor, est: torch.Tensor,
+                   rmax: torch.Tensor, brk: torch.Tensor, act: torch.Tensor,
+                   k_cycle: torch.Tensor, tol: torch.Tensor, max_iterations: int):
+    """The column bookkeeping of :func:`arnoldi_givens_ref`: CUDA tensors go
+    through kernel B8 (one launch over the batch; every operand contiguous,
+    the field dtype float32 or float64 and the accumulation dtype float64
+    or the field dtype, restart at most ``ARN_MAX_RESTART``), bit for bit
+    its plain version; a pair whose act is clear keeps its state.  CPU
+    tensors go through the plain version."""
+    # in the C entry point's order
+    operands = dict(hh=hh, norms=norms, tol=tol, R=R, rot0=rot0, rot1=rot1, g=g, j=j, est=est,
+                    rmax=rmax, brk=brk, act=act, k_cycle=k_cycle)
+    if _on_cpu(*operands.values()):
+        return arnoldi_givens_ref(hh, norms, R, rot0, rot1, g, j, est, rmax, brk, act, k_cycle,
+                                  tol, max_iterations)
+    B, m = _check_givens(hh, norms, R, rot0, rot1, g, j, est, rmax, brk, act, k_cycle, tol)
+    types = _krylov_types("B8", R, hh.dtype, operands)
+    if m > ARN_MAX_RESTART:
+        raise ValueError(f"B8 takes a restart of at most {ARN_MAX_RESTART}, got {m}")
+    hj1, j1, jz, was = R.new_empty(B), torch.empty_like(j), torch.empty_like(j), act.new_empty(B)
+    rc = _call(load_library()["krylov_givens"], R.device, 1,
+               (types, *(t.data_ptr() for t in operands.values()), hj1.data_ptr(),
+                j1.data_ptr(), jz.data_ptr(), was.data_ptr(), B, m, int(max_iterations)))
+    if rc != 0:
+        raise RuntimeError(f"krylov_givens kernel launch failed: cudaError {rc}")
+    _count("ARN_LAUNCHES")
+    return hj1, j1, jz, was

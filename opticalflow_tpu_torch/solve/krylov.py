@@ -416,10 +416,11 @@ def fgmres(
     every product and sum in the accumulation dtype (float64 for float32
     fields by default), each projection cast to ``b.dtype`` before it is
     subtracted, and only the rows each pair has written (0..j of V, those
-    below the columns used of Z).  The earlier rotations run over all
-    ``restart`` positions, masked to those below ``j``; the new rotation,
-    the guards, ``g``, the estimate and ``rmax`` are device ops in
-    ``b.dtype``.  One Arnoldi column is one :class:`_Step`, replayed from a
+    below the columns used of Z).  The column's bookkeeping in ``b.dtype``
+    (the earlier Givens rotations, the new one, the guards, R, ``g``, the
+    estimate and ``rmax``) is kernel B8 on the card, one launch a column
+    (``cuda_kernels.arnoldi_givens``; its plain version, torch ops, on the
+    CPU).  One Arnoldi column is one :class:`_Step`, replayed from a
     CUDA graph on the card, with the cycle's exit read once per chunk of
     columns.  The least squares of each restart (``solve_triangular`` over
     each pair's columns) and the truncation guard run on the device too;
@@ -491,54 +492,20 @@ def fgmres(
         def own(t):
             return t if narrow is None else t.index_select(0, narrow)
 
-        j_own, a_own = own(j), own(act)[:, None]
-        z = col_precond(V[cols, j_own].reshape((cols.numel(),) + b.shape[1:]))
+        z = col_precond(V[cols, own(j)].reshape((cols.numel(),) + b.shape[1:]))
         mz = col_matvec(z).reshape(-1, N)
         w_col = mz.contiguous() if narrow is None else w_in.index_copy_(0, narrow, mz)
         # CGS2 against rows 0..j: w, h = [h1; h2], norms = |w|^2 before, after
         w, hh, norms = cuda_kernels.gram_schmidt(V, w_col, j, act, acc)
-        w_entry, hj1 = torch.sqrt(norms).to(dt).unbind(1)
-        h = (hh[:, 0] + hh[:, 1]).to(dt)  # (B, m+1)
+        # the rotations, the guards, R, g, est, rmax, brk, j and act, updated
+        # in place where act; hj1 = |w| after CGS2, the rows of V and Z the
+        # column writes and act as it was
+        hj1, j1, jz, was = cuda_kernels.arnoldi_givens(hh, norms, R, rot0, rot1, g, j, est, rmax,
+                                                       brk, act, k_cycle, tol, max_iterations)
         v_next = own(w) / torch.clamp(own(hj1), min=tiny)[:, None]
-        j1, jz = torch.clamp(j + 1, max=m), torch.clamp(j, max=m - 1)  # in range when frozen
-        j1_own, jz_own = own(j1), own(jz)
+        j1_own, jz_own, a_own = own(j1), own(jz), own(was)[:, None]
         V[cols, j1_own] = torch.where(a_own, v_next, V[cols, j1_own])
         Z[cols, jz_own] = torch.where(a_own, z.reshape(-1, N), Z[cols, jz_own])
-        a = act[:, None]
-
-        # the new column [h with position j+1 := hj1], the earlier rotations
-        col = torch.where(rows == (j + 1)[:, None], hj1[:, None], h)
-        applied = rows[None, :m] < j[:, None]
-        for i in range(m):
-            hi = col[:, i : i + 2]
-            turned = rot0[:, i] * hi[:, :1] + rot1[:, i] * hi[:, 1:]
-            col[:, i : i + 2] = torch.where(applied[:, i : i + 1], turned, hi)
-
-        # the new rotation, eliminating col[j+1]
-        a1, a2 = col[pairs, j], col[pairs, j1]
-        denom = torch.sqrt(a1 * a1 + a2 * a2)
-        safe = torch.clamp(denom, min=tiny)
-        c_new = torch.where(denom > 0, a1 / safe, 1.0)
-        s_new = torch.where(denom > 0, a2 / safe, 0.0)
-        rdd = c_new * a1 + s_new * a2
-        col[pairs, j] = rdd
-        col[pairs, j1] = torch.zeros_like(a2)
-        gj = g[pairs, j]
-        rmax_new = torch.maximum(rmax, rdd.abs())
-        brk_new = (hj1 <= 3e-4 * w_entry) | (rdd.abs() <= 1e-5 * rmax_new)
-
-        rot0[pairs, jz] = torch.where(a, torch.stack([c_new, -s_new], dim=1), rot0[pairs, jz])
-        rot1[pairs, jz] = torch.where(a, torch.stack([s_new, c_new], dim=1), rot1[pairs, jz])
-        g_j1 = torch.where(act, -s_new * gj, g[pairs, j1])
-        g[pairs, j] = torch.where(act, c_new * gj, gj)
-        g[pairs, j1] = g_j1
-        R[pairs, :, jz] = torch.where(a, col, R[pairs, :, jz])
-        j_new = j + act
-        est_new = torch.where(act, g_j1.abs(), est)
-        brk_new = torch.where(act, brk_new, brk)
-        _commit((est, rmax, brk, j), (est_new, torch.where(act, rmax_new, rmax), brk_new, j_new))
-        act.copy_(act & (j_new < m) & (est_new > tol) & ~brk_new
-                  & (k_cycle + j_new < max_iterations))
 
     step = _Step(column, dev)
 

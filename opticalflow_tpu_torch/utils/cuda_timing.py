@@ -27,7 +27,8 @@ moves and computes, in bytes and float32 operations, from which
 ``chip_smoke.py``'s ``bound_ms`` and :mod:`kernel_ab`'s bounds come:
 
 * :func:`el_matvec_work` (B1, B2, B3), :func:`df32_work` (B4),
-  :func:`mg_work` (B5, B6), :func:`gram_schmidt_work` (B7);
+  :func:`mg_work` (B5, B6), :func:`gram_schmidt_work` (B7),
+  :func:`arnoldi_givens_work` (B8);
 * :func:`bound`: the least time of a launch, its bytes over the card's
   memory rate or its operations over the float32 rate, whichever is
   larger; :func:`issue_ceiling`: its operations at one issue slot each.
@@ -136,6 +137,18 @@ def gram_schmidt_work(B: int, N: int, rows: int, column: bool = True) -> Tuple[i
     if column:
         return 4 * B * N * (rows + 2), 4 * B * N * (3 * rows + 5)
     return (4 * B * N * (rows + 2),) * 2
+
+
+def arnoldi_givens_work(B: int, rows: int, j: int) -> Tuple[int, int]:
+    """(bytes, operations) of one launch of B8 on B active pairs at column
+    ``j`` of a restart of ``rows`` - 1, float32 storage and float64 sums:
+    each pair reads its two dots (16 rows bytes), norms and tol (24), the j
+    rotations below the column (16 j), g_j, j, act, k_cycle and rmax (21),
+    and writes R's column (4 rows), its rotation (16), g_j and g_j+1, est,
+    rmax, brk, j and act (26) and the outputs hj1, j1, jz and was (21); it
+    computes rows sums, 6 operations a rotation and about 20 more (the new
+    rotation, g, the guards)."""
+    return B * (20 * rows + 16 * j + 108), B * (rows + 6 * j + 20)
 
 
 def call_ms(fn: Callable, reps: int, rounds: int = 5) -> float:

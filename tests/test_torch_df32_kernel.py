@@ -134,10 +134,10 @@ def test_wrappers_check_shapes():
 
 def test_only_b4_is_built_without_contraction(monkeypatch, tmp_path):
     """nvcc gets -fmad=false for the sources held to their plain versions
-    bit for bit alone (B4's el_df32.cu and, since B5 and B6 came, the
-    multigrid's mg_smooth.cu and mg_transfer.cu; B1-B3 may contract), no
-    source gets fast math or flush-to-zero, and the flags enter each
-    library's key."""
+    bit for bit alone (B4's el_df32.cu, the multigrid's mg_smooth.cu and
+    mg_transfer.cu (B5, B6) and FGMRES's column bookkeeping
+    krylov_givens.cu (B8); B1-B3 and B7 may contract), no source gets fast
+    math or flush-to-zero, and the flags enter each library's key."""
     commands = []
 
     class FailedNvcc:
@@ -158,7 +158,7 @@ def test_only_b4_is_built_without_contraction(monkeypatch, tmp_path):
     assert set(by_source) == set(ck.ENTRY_POINTS)
     for src, args in by_source.items():
         assert ("-fmad=false" in args) == (src in ("el_df32.cu", "mg_smooth.cu",
-                                                   "mg_transfer.cu"))
+                                                   "mg_transfer.cu", "krylov_givens.cu"))
         assert not any("fast_math" in a or "ftz=true" in a for a in args)
     output = by_source["el_df32.cu"][by_source["el_df32.cu"].index("-o") + 1]
 

@@ -1,5 +1,5 @@
 """The one account of each kernel's work (utils/cuda_timing.py) held to
-fixed values: the bound of one launch of B1-B7 at the shapes the port's
+fixed values: the bound of one launch of B1-B8 at the shapes the port's
 paths launch, in microseconds (B7: milliseconds), and whether bytes or
 operations set it.  chip_smoke.py's ``bound_ms`` and the kernel A/B's
 bounds are these numbers; PERF.md's table of kernels quotes them.
@@ -69,6 +69,12 @@ CASES = [  # (id, thunk giving (value, bound_by), expected value, expected bound
      lambda: _bytes_ms(ct.gram_schmidt_work(1, GS_N, 32)[1]), 0.09410185075, "bytes"),
     ("B7 update 49 pairs rows 31",
      lambda: _bytes_ms(ct.gram_schmidt_work(49, GS_N, 31, False)[0]), 1.506561313, "bytes"),
+    ("B8 49 pairs restart 32 column 31", lambda: _bound_us(ct.arnoldi_givens_work(49, 33, 31)),
+     0.01848835821, "bytes"),
+    ("B8 20 pairs restart 32 column 0", lambda: _bound_us(ct.arnoldi_givens_work(20, 33, 0)),
+     0.004585074627, "bytes"),
+    ("B8 1 pair restart 64 column 63", lambda: _bound_us(ct.arnoldi_givens_work(1, 65, 63)),
+     0.0007211940299, "bytes"),
     # the conversion itself: one second of each rate, a tie going to bytes
     ("one second of operations", lambda: ct.bound(0, int(ct.F32_FLOPS_PER_S)), 1.0, "operations"),
     ("a tie", lambda: ct.bound(int(ct.HBM_BYTES_PER_S), int(ct.F32_FLOPS_PER_S)), 1.0, "bytes"),
