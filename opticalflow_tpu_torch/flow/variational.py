@@ -28,6 +28,9 @@ reads its active set from the device at every step.  Warm-start modes:
 * ``'cold'``: every pair starts from the initial guess, all pairs batched;
 * ``'two-pass'``: pair 0 alone, then the remaining pairs batched from its
   solution.
+
+A batched pass runs in as few chunks as the device's memory allows
+(:func:`batch_plan`): one on the CPU and wherever the batch fits.
 """
 
 from __future__ import annotations
@@ -396,17 +399,113 @@ def solve_frame_pair(
     return u, info
 
 
+# Share of the device's memory a batched pass plans its chunks into.
+MEMORY_SHARE = 0.9
+# Device memory the caching allocator holds a pair at a batched solve's
+# peak, over what the pair's tensors take (pair_bytes): free blocks inside
+# segments that live tensors keep and the Krylov steps' graph memory pool.
+# Peak reserved over peak allocated on an H100 at 8, 17 and 25 pairs of
+# 1022^2: 1.55, 1.54, 1.43 (PERF.md §6); 49 pairs at 1.0 ran out of memory.
+ALLOCATOR_SLACK = 1.55
+# Three-field (3, m, n) temporaries alive at the solve's peak besides the
+# basis: the Krylov loop's and the column step's vectors and the V-cycle's
+# at the fine level (PERF.md §6 gives the phase peaks they were read from).
+_SCRATCH_VECTORS = 16
+
+
+def pair_bytes(m: int, n: int, gmres_restart: int = 32, dtype=torch.float32) -> int:
+    """Device bytes one pair adds to a batched :func:`solve_frame_pair` at
+    (m, n) interiors, at the solve's peak (the df32 refinement's first
+    correction solve), summed from what the solve holds there:
+
+    * the pair's planes: the frames, the guess and the right-hand side on
+      the full grid (9 planes), the 13 coefficient planes, the reduced
+      right-hand side, guess and main solution (9);
+    * the multigrid hierarchy: the fine level's block inverses (9 planes),
+      each coarser level's probed operator and block inverses (81 + 9
+      planes of its size) and the coarsest level's LU factors;
+    * the df32 system data (B4's packed planes, 26 with the fixed dy rule
+      and 24 in compat mode: 26; its right-hand side's high and low parts,
+      6) and the refinement's state (low part, residual, the correction's
+      right-hand side and guess: 12);
+    * FGMRES's bases V and Z, ``2 gmres_restart + 1`` three-field rows;
+    * ``_SCRATCH_VECTORS`` three-field temporaries.
+
+    An upper bound for BiCGStab and CG, whose vectors are fewer than the
+    bases."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    full = (m + 2) * (n + 2)
+    interior = 13 + 9 + 26 + 6 + 12 + 3 * (2 * gmres_restart + 1) + 3 * _SCRATCH_VECTORS
+    hierarchy = 9 * m * n
+    mc, nc = m, n
+    while min(mc, nc) > 8:  # multigrid.setup's levels (min_size 8)
+        mc, nc = multigrid.coarse_dims(mc, nc)
+        hierarchy += 90 * mc * nc
+    hierarchy += (3 * mc * nc) ** 2 + 3 * mc * nc  # the coarsest LU and its pivots
+    return itemsize * (9 * full + interior * m * n + hierarchy)
+
+
+def plan_chunks(pairs: int, per_pair: float, usable: float) -> list:
+    """Chunk sizes of a batched pass over ``pairs`` pairs that needs
+    ``per_pair`` bytes a pair within ``usable`` bytes: as many as fit, at
+    least one, in ``ceil(pairs / fit)`` chunks whose sizes differ by at most
+    one pair, the larger first."""
+    fit = max(1, int(usable // per_pair))
+    count = -(-pairs // fit)
+    size, extra = divmod(pairs, count)
+    return [size + 1] * extra + [size] * (count - extra)
+
+
+def batch_plan(pairs: int, m: int, n: int, gmres_restart: int, dtype, device) -> list:
+    """The chunks of a batched pass of ``pairs`` pairs of (m, n) interiors
+    on ``device``: one on the CPU; on a CUDA device as many pairs a chunk
+    as fit, at :func:`pair_bytes` times ``ALLOCATOR_SLACK`` a pair, in
+    ``MEMORY_SHARE`` of the device's memory less what is allocated when
+    the pass starts."""
+    if device.type != "cuda":
+        return [pairs]
+    usable = (MEMORY_SHARE * torch.cuda.get_device_properties(device).total_memory
+              - torch.cuda.memory_allocated(device))
+    return plan_chunks(pairs, ALLOCATOR_SLACK * pair_bytes(m, n, gmres_restart, dtype), usable)
+
+
+def _solve_batched(pair_solver, prev_frames, cur_frames, u0, gmres_restart):
+    """One batched pass over the pairs of ``prev_frames`` / ``cur_frames``
+    from ``u0``, in the chunks :func:`batch_plan` gives, each one
+    ``solve_frame_pair`` call; the chunks' solutions and infos in pair
+    order.  Each chunk counts one ``variational/batch_chunks``, records its
+    pairs in the series ``variational/chunk_pairs`` and runs inside the span
+    ``variational/chunk``.  No chunk is retried: a plan that does not fit
+    fails with the device's out-of-memory error."""
+    m, n = prev_frames.shape[-2] - 2, prev_frames.shape[-1] - 2
+    plan = batch_plan(prev_frames.shape[0], m, n, gmres_restart, prev_frames.dtype,
+                      prev_frames.device)
+    us, infos, lo = [], [], 0
+    for size in plan:
+        observability.add_count("variational/batch_chunks")
+        observability.record_value("variational/chunk_pairs", size)
+        with observability.span("variational/chunk"):
+            u, info = pair_solver(prev_frames[lo:lo + size], cur_frames[lo:lo + size], u0)
+        us.append(u)
+        infos.append(info)
+        lo += size
+    return us, infos
+
+
 def _solve_movie(movie, u_init, speed_alpha, remodelling_alpha, dy_mode, warm_start, **solver_kw):
     """Solve every frame pair of ``movie`` (T, Ni, Nj) from ``u_init`` (3,
     Ni, Nj); returns (P, 3, Ni, Nj) solutions and a dict of (P,) infos.
     The sequential loop records each pair's host wall, from the previous
     pair's end (the loop's start for the first), in the series
-    ``variational/pair_s``."""
+    ``variational/pair_s``; the batched pass of ``'cold'`` and
+    ``'two-pass'`` runs in chunks sized by the device's memory
+    (:func:`_solve_batched`)."""
     prev_frames, cur_frames = movie[:-1], movie[1:]
     pair_solver = functools.partial(
         solve_frame_pair, speed_alpha=speed_alpha, remodelling_alpha=remodelling_alpha,
         dy_mode=dy_mode, **solver_kw,
     )
+    restart = solver_kw.get("gmres_restart", 32)
     if warm_start == "sequential":
         us, infos, carry = [], [], u_init
         last = time.perf_counter()
@@ -419,17 +518,17 @@ def _solve_movie(movie, u_init, speed_alpha, remodelling_alpha, dy_mode, warm_st
             observability.record_value("variational/pair_s", now - last)
             last = now
     elif warm_start == "cold":
-        u, info = pair_solver(prev_frames, cur_frames, u_init)
-        us, infos = [u], [info]
+        us, infos = _solve_batched(pair_solver, prev_frames, cur_frames, u_init, restart)
     elif warm_start == "two-pass":
         # pair 0 from the caller's guess, then the rest batched from its
         # solution (consecutive frames are highly correlated)
         u_first, info_first = pair_solver(prev_frames[:1], cur_frames[:1], u_init)
         us, infos = [u_first], [info_first]
         if prev_frames.shape[0] > 1:
-            u_rest, info_rest = pair_solver(prev_frames[1:], cur_frames[1:], u_first[0])
-            us.append(u_rest)
-            infos.append(info_rest)
+            u_rest, info_rest = _solve_batched(pair_solver, prev_frames[1:], cur_frames[1:],
+                                               u_first[0], restart)
+            us += u_rest
+            infos += info_rest
     else:
         raise ValueError(f"unknown warm_start mode {warm_start!r}")
     all_u = torch.cat(us)

@@ -192,19 +192,21 @@ def test_pair_latency_needs_two_pairs():
 
 
 def test_the_benchmark_lists_each_new_metric_in_its_cells():
-    """Each new stem in ``BENCHMARK.json``: ``<stem>`` in the two-pass cell
-    moving ``pairs_per_s``, ``<stem>.sequential`` in the sequential cell
-    moving ``pairs_per_s.sequential``; the retakes in the two-pass cell alone
-    (one pair a call never re-slices), the p95 in the sequential cell alone."""
+    """Each new stem in ``BENCHMARK.json``: ``<stem>`` in the two-pass cells
+    moving ``pairs_per_s``, ``<stem>.sequential`` in the sequential cell and
+    the one-pair 1024^2 cell moving ``pairs_per_s.sequential``; the retakes
+    in the two-pass cells alone (one pair a call never re-slices), the p95
+    in the sequential cells alone."""
     per_layer = {m["name"]: m for m in files.benchmark()["per_layer"]}
     two_pass_only, sequential_only = {"refinement.retakes_per_pair"}, {"solve.pair_ms_p95"}
     for stem in EXPECTED:
         if stem not in sequential_only:
             m = per_layer[stem]
-            assert (m["workloads"], m["moves"]) == (["actin512_twopass"], "pairs_per_s"), stem
+            assert (m["workloads"], m["moves"]) == (["actin512_twopass", "embryo1024_twopass"],
+                                                    "pairs_per_s"), stem
         if stem not in two_pass_only:
             m = per_layer[f"{stem}.sequential"]
-            assert (m["workloads"], m["moves"]) == (["actin512_seq"],
+            assert (m["workloads"], m["moves"]) == (["actin512_seq", "embryo1024_pair"],
                                                     "pairs_per_s.sequential"), stem
     assert sum(n.split(".sequential")[0] in EXPECTED for n in per_layer) == 18
 
@@ -212,14 +214,14 @@ def test_the_benchmark_lists_each_new_metric_in_its_cells():
 def test_slot_columns_reader_reads_its_counter_or_nothing():
     """FGMRES's column steps a pair, counted for every slot of the batch
     (``krylov/slot_columns``); None at a program without the counter. It
-    moves ``pairs_per_s`` in the two cells that batch FGMRES solves."""
+    moves ``pairs_per_s`` in the three cells that batch FGMRES solves."""
     read = files.metric_reader("krylov.slot_columns_per_pair")
     assert read.__code__.co_filename.endswith("metrics/krylov.slot_columns_per_pair.py")
     assert read({"pairs": 4, "counters": {"krylov/slot_columns": 600}}) == 150.0
     assert read({"pairs": 4, "counters": {"krylov/host_syncs": 8}}) is None
     m = {m["name"]: m for m in files.benchmark()["per_layer"]}["krylov.slot_columns_per_pair"]
     assert (m["workloads"], m["moves"], m["layer"]) == (
-        ["actin512_twopass", "sweep512_grid20"], "pairs_per_s", "krylov")
+        ["actin512_twopass", "sweep512_grid20", "embryo1024_twopass"], "pairs_per_s", "krylov")
 
 
 def _cuda():
